@@ -1,0 +1,89 @@
+"""Method registry: one dispatch table for every MAP solver backend.
+
+Each entry is a :class:`MethodSpec` pairing the solver callable with the
+:class:`~repro_torch.core.options.SolverOptions` dataclass it owns:
+
+    registry.register_method("my_method", solver, MyOptions)
+
+where ``solver(grid: GridLQT, options: MyOptions) -> MAPSolution``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Tuple, Type
+
+from .options import (
+    KernelOptions,
+    ParallelOptions,
+    SequentialOptions,
+    SolverOptions,
+)
+from .parallel import parallel_rts
+from .sequential import sequential_rts
+from .types import GridLQT, MAPSolution
+
+Solver = Callable[[GridLQT, SolverOptions], MAPSolution]
+
+
+class MethodSpec(NamedTuple):
+    """A registered solver backend: name + solver + its options class."""
+
+    name: str
+    solver: Solver
+    options_cls: Type[SolverOptions]
+
+
+_METHODS: Dict[str, MethodSpec] = {}
+
+
+def register_method(name: str, solver: Solver,
+                    options_cls: Type[SolverOptions], *,
+                    overwrite: bool = False) -> None:
+    """Register ``solver(grid, options) -> MAPSolution`` under ``name``."""
+    if not (isinstance(options_cls, type)
+            and issubclass(options_cls, SolverOptions)):
+        raise TypeError(
+            f"options_cls must be a SolverOptions subclass, got "
+            f"{options_cls!r}")
+    if name in _METHODS and not overwrite:
+        raise ValueError(f"method {name!r} already registered")
+    _METHODS[name] = MethodSpec(name, solver, options_cls)
+
+
+def get_method(name: str) -> MethodSpec:
+    try:
+        return _METHODS[name]
+    except KeyError:
+        raise ValueError(
+            f"method must be one of {method_names()}, got {name!r}"
+        ) from None
+
+
+def method_names() -> Tuple[str, ...]:
+    return tuple(_METHODS)
+
+
+def _parallel_kernel_solver(grid: GridLQT, o: KernelOptions) -> MAPSolution:
+    """RTS smoother with the backward scan run by the lane-major CUDA
+    combine kernel (one layout round-trip for the whole multi-level scan).
+
+    The kernel package is imported lazily so ``repro_torch.core`` never
+    depends on ``repro_torch.kernels`` at import time.
+    """
+    from repro_torch.kernels.lqt_combine.ops import kernel_suffix_scan
+
+    def suffix(elems):
+        return kernel_suffix_scan(elems, block_size=o.block_size,
+                                  precision=o.precision)
+
+    return parallel_rts(grid, o.nsub, o.mode, suffix_scan_fn=suffix)
+
+
+register_method(
+    "parallel_rts",
+    lambda grid, o: parallel_rts(grid, o.nsub, o.mode),
+    ParallelOptions)
+register_method("parallel_kernel", _parallel_kernel_solver, KernelOptions)
+register_method(
+    "sequential_rts",
+    lambda grid, o: sequential_rts(grid, o.mode),
+    SequentialOptions)

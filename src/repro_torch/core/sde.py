@@ -1,0 +1,246 @@
+"""Linear continuous-time state-space models, grid discretisation,
+simulation and the discretised Onsager-Machlup cost (eq. 2).
+
+Grid conventions (as in the reference package):
+
+* original time grid ``t_k = t0 + k dt`` for ``k = 0..N``; coefficient /
+  measurement index ``k`` covers ``[t_k, t_{k+1}]``;
+* the reversed problem has ``phi_j = x(t_{N-j})``; reversed interval ``j``
+  maps to original interval ``k = N-1-j`` and evaluates the drift at the
+  reversed-left point ``phi_j = x_{k+1}`` (backward-Euler in original time);
+* measurement noise with spectral density R discretises to
+  ``y_k ~ N(h(x), R/dt)``.
+
+Record batches: a time grid ``ts`` of shape ``(N+1, *R)`` evaluates every
+coefficient to ``(N, *R, ...)`` (see :mod:`repro_torch.core.types`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+
+from .combine import _mv, _solve_vec
+from .types import GridLQT, Tensor
+
+Coef = Union[Tensor, Callable[[Tensor], Tensor]]
+
+# Information-form prior override (S0, v0): the initial boundary enters the
+# reversed LQT as terminal information S_T = S0, v_T = v0.
+Prior = Tuple[Tensor, Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSDE:
+    """Linear-affine model (eq. 12), possibly time-varying via callables.
+
+    ``F, c, H, r, Q, R`` are each a constant tensor or a callable of a
+    scalar time tensor (evaluated on the grid with ``torch.func.vmap``; it
+    must return tensors on the device and dtype of its argument).
+    """
+
+    F: Coef
+    c: Coef
+    H: Coef
+    r: Coef
+    Q: Coef
+    R: Coef
+    m0: Tensor
+    P0: Tensor
+
+    @property
+    def nx(self) -> int:
+        return self.m0.shape[-1]
+
+    @property
+    def ny(self) -> Optional[int]:
+        """Measurement dimension, or ``None`` when ``R`` is a callable."""
+        return None if callable(self.R) else self.R.shape[-1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.m0.dtype
+
+    def to(self, device=None, dtype=None) -> "LinearSDE":
+        """Copy with every constant tensor moved/cast (callables are kept)."""
+        def move(a):
+            return a if callable(a) else a.to(device=device, dtype=dtype)
+
+        return LinearSDE(*(move(getattr(self, f.name))
+                           for f in dataclasses.fields(self)))
+
+    @staticmethod
+    def _eval(item: Coef, tl: Tensor) -> Tensor:
+        if callable(item):
+            out = torch.func.vmap(item)(tl.reshape(-1))
+            return out.reshape(tl.shape + out.shape[1:])
+        return item.expand(tl.shape + item.shape)
+
+    def grids(self, ts: Tensor):
+        """All coefficients on the left points of the N intervals."""
+        tl = ts[:-1]
+        return tuple(self._eval(a, tl)
+                     for a in (self.F, self.c, self.H, self.r, self.Q, self.R))
+
+
+def time_grid(t0: float, tf: float, num_steps: int,
+              dtype: torch.dtype = torch.float64, device=None) -> Tensor:
+    return torch.linspace(t0, tf, num_steps + 1, dtype=dtype, device=device)
+
+
+def build_grid_lqt(
+    F: Tensor, c: Tensor, H: Tensor, r: Tensor, Q: Tensor, R: Tensor,
+    y: Tensor, dt: Tensor, m0: Tensor, P0: Tensor,
+    lin: Optional[Tensor] = None,
+    measurement_mask: Optional[Tensor] = None,
+    prior: Optional[Prior] = None,
+) -> GridLQT:
+    """Time-reverse grid coefficients into the LQT problem of section 2.4.
+
+    Reversed interval ``j`` <- original interval ``N-1-j``; ``F~ = -F``,
+    ``c~ = -c``.  ``measurement_mask`` (``(N, *R)``, original time order,
+    1.0 = real) zeroes ``R^{-1}`` (and the optional linear cost) on masked
+    intervals.  ``prior`` ``(S0, v0)`` replaces the covariance-form
+    ``(m0, P0)`` boundary with information-form terminal values.
+    """
+    flip = lambda a: torch.flip(a, (0,))
+    Rinv = torch.linalg.inv(R)
+    if measurement_mask is not None:
+        Rinv = Rinv * measurement_mask[..., None, None]
+        if lin is not None:
+            lin = lin * measurement_mask[..., None]
+    if prior is not None:
+        S_T, v_T = prior
+    else:
+        S_T = torch.linalg.inv(P0)
+        v_T = _mv(S_T, m0)
+    return GridLQT(
+        dt=flip(dt.expand(y.shape[:-1])),
+        F=-flip(F), c=-flip(c),
+        H=flip(H), r=flip(r),
+        Q=flip(Q), Rinv=flip(Rinv), y=flip(y),
+        S_T=S_T, v_T=v_T,
+        lin=None if lin is None else flip(lin),
+    )
+
+
+def grid_lqt_from_linear(
+    model: LinearSDE, ts: Tensor, y: Tensor,
+    measurement_mask: Optional[Tensor] = None,
+    prior: Optional[Prior] = None,
+) -> GridLQT:
+    """``ts`` ``(N+1, *R)`` and ``y`` ``(N, *R, ny)`` share record dims."""
+    if ts.shape[1:] != y.shape[1:-1]:
+        raise ValueError(
+            f"ts {tuple(ts.shape)} and y {tuple(y.shape)} must share the "
+            f"record dims after the time axis")
+    F, c, H, r, Q, R = model.grids(ts)
+    dt = ts[1:] - ts[:-1]
+    return build_grid_lqt(F, c, H, r, Q, R, y, dt, model.m0, model.P0,
+                          measurement_mask=measurement_mask, prior=prior)
+
+
+# ---------------------------------------------------------------------------
+# Simulation + cost functional
+# ---------------------------------------------------------------------------
+
+
+def _psd_sqrt(Q: Tensor) -> Tensor:
+    """Square root of a (possibly singular) PSD matrix via eigh."""
+    w, V = torch.linalg.eigh(Q)
+    return (V * torch.sqrt(torch.clamp(w, min=0.0)).unsqueeze(-2)) \
+        @ V.transpose(-1, -2)
+
+
+def simulate_linear(model: LinearSDE, ts: Tensor,
+                    generator: torch.Generator):
+    """Euler-Maruyama simulation of (12) + discretised measurements.
+
+    ``ts`` ``(N+1, *R)`` simulates one record per entry of ``*R``; returns
+    ``xs`` ``(N+1, *R, nx)`` and ``y`` ``(N, *R, ny)``.  Draws come from
+    ``generator``, which must live on ``ts``'s device.
+    """
+    F, c, H, r, Q, R = model.grids(ts)
+    dt = ts[1:] - ts[:-1]
+    N, lead = dt.shape[0], tuple(ts.shape[1:])
+    kw = dict(generator=generator, dtype=model.dtype, device=ts.device)
+    x = model.m0 + _mv(torch.linalg.cholesky(model.P0),
+                       torch.randn(lead + (model.nx,), **kw))
+    eps = torch.randn((N,) + lead + (model.nx,), **kw)
+    # the noise increments do not depend on the state: draw them in bulk.
+    # A constant Q / R is factored once (a batched factorisation over the
+    # whole grid can exceed the GPU solver's batch limits).
+    Qh = (_psd_sqrt(Q) if callable(model.Q)
+          else _psd_sqrt(model.Q).expand(Q.shape))
+    w = torch.sqrt(dt)[..., None] * _mv(Qh, eps)
+    dtv = dt[..., None]
+    xs = [x]
+    for k in range(N):
+        x = x + dtv[k] * (_mv(F[k], x) + c[k]) + w[k]
+        xs.append(x)
+    xs = torch.stack(xs, dim=0)
+    noise = torch.randn(H.shape[:-1], **kw)
+    # measurement for interval k uses the reversed-left point x_{k+1}
+    Rch = (torch.linalg.cholesky(R) if callable(model.R)
+           else torch.linalg.cholesky(model.R).expand(R.shape))
+    y = _mv(H, xs[1:]) + r + _mv(Rch, noise) / torch.sqrt(dtv)
+    return xs, y
+
+
+def _quad(v: Tensor, M: Tensor) -> Tensor:
+    """Batched quadratic form ``v^T M v``."""
+    return (v * _mv(M, v)).sum(-1)
+
+
+def _prior_cost(model: LinearSDE, x0: Tensor,
+                prior: Optional[Prior]) -> Tensor:
+    if prior is not None:
+        S0, v0 = prior
+        d0 = x0 - _solve_vec(S0, v0)
+        return 0.5 * _quad(d0, S0)
+    d0 = x0 - model.m0
+    return 0.5 * (d0 * _solve_vec(model.P0, d0)).sum(-1)
+
+
+def om_cost_linear(model: LinearSDE, ts: Tensor, y: Tensor, x: Tensor,
+                   measurement_mask: Optional[Tensor] = None,
+                   prior: Optional[Prior] = None) -> Tensor:
+    """Discretised Onsager-Machlup / minimum-energy cost of a trajectory,
+    with the backward-Euler quadrature the reversed-time solvers use."""
+    F, c, H, r, Q, R = model.grids(ts)
+    dt = ts[1:] - ts[:-1]
+    cost = _prior_cost(model, x[0], prior)
+    xr = x[1:]
+    resid = (x[1:] - x[:-1]) / dt[..., None] - (_mv(F, xr) + c)
+    cost = cost + 0.5 * torch.sum(dt * _quad(resid, torch.linalg.inv(Q)),
+                                  dim=0)
+    meas = _quad(y - (_mv(H, xr) + r), torch.linalg.inv(R))
+    if measurement_mask is not None:
+        meas = meas * measurement_mask
+    return cost + 0.5 * torch.sum(dt * meas, dim=0)
+
+
+def om_cost_grid(grid: GridLQT, x: Tensor) -> Tensor:
+    """Onsager-Machlup cost of ``x`` (ORIGINAL time order, ``(N+1, *R,
+    nx)``) under a built grid problem: the objective of a MAP solution.
+
+    ``Q`` may be singular: the dynamics term uses the pseudo-inverse with
+    the reference's cutoff ``rtol = 10 max(m, n) eps`` (torch's default
+    cutoff is ten times smaller).
+    """
+    phi = torch.flip(x, (0,))                     # phi_j = x_{N-j}
+    dt = grid.dt
+    resid = (phi[1:] - phi[:-1]) / dt[..., None] - (
+        _mv(grid.F, phi[:-1]) + grid.c)
+    n = grid.Q.shape[-1]
+    Qpinv = torch.linalg.pinv(
+        grid.Q, rtol=10.0 * n * torch.finfo(grid.Q.dtype).eps)
+    cost = 0.5 * torch.sum(dt * _quad(resid, Qpinv), dim=0)
+    innov = grid.y - (_mv(grid.H, phi[:-1]) + grid.r)
+    cost = cost + 0.5 * torch.sum(dt * _quad(innov, grid.Rinv), dim=0)
+    if grid.lin is not None:
+        cost = cost + torch.sum(dt * (grid.lin * phi[:-1]).sum(-1), dim=0)
+    # terminal (reversed) boundary = the initial prior
+    d0 = phi[-1] - _solve_vec(grid.S_T, grid.v_T)
+    return cost + 0.5 * _quad(d0, grid.S_T)
