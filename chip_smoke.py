@@ -41,7 +41,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 # H100 SXM peaks: HBM3 rate and the non-tensor-core float rates (NVIDIA
-# data sheet; float32 as in the on-chip-measurement guide's table).
+# data sheet).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
@@ -145,7 +145,7 @@ def device_time_ms(fn, reps: int) -> float:
 
 def scan_lane_counts(n: int, records: int) -> list:
     """Lane count of every combine the kernel scan launches for ``n`` scan
-    elements of ``records`` records (the same tree the driver runs)."""
+    elements of ``records`` records (the same tree the kernel scan in ``ops.py`` runs)."""
     from repro_torch.core.pscan import associative_scan
 
     counts = []
