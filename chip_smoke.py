@@ -5,29 +5,48 @@
 
 Phases, each of which fails the run on any miss:
 
-1. build   -- compile the CUDA kernels from the sources in this checkout
-              (``nvcc`` for ``sm_90a`` into ``build/``), with ptxas's
-              register and spill counts;
-2. kernels -- each kernel against its plain PyTorch version on the card,
-              on random element pairs with PSD C/J, nx in {2, 4, 8}, lane
-              counts {1, 7, 4097, 2**20}, float32 and float64; then the
-              whole-scan kernel driver against the plain suffix scan;
-3. main    -- ``Estimator(method="parallel_kernel").solve`` on the Wiener
-              velocity model (paper section 5.1) at T = 2048 blocks x
-              nsub = 10 (N = 20480) in float64, for one record and for 64
-              stacked records, held against the port's ``parallel_rts`` on
-              the card and its ``sequential_rts`` on the CPU (a labelled
-              reference), with the launch counts of the kernels, then the
-              median solve time over a few runs, and one profiled solve
-              per cell (device busy time, top device kernels);
-4. report  -- one JSON line of per-kernel numbers, the card's name and
-              power limit, and the final status line.
+1. build      -- compile the three CUDA kernels from the sources in this
+                 checkout (one ``nvcc`` per source, all at once, for
+                 ``sm_90a`` into ``build/``), with ptxas's register and
+                 spill counts per instantiation;
+2. kernels    -- each kernel against its plain PyTorch version on the
+                 card: ``lqt_combine`` on random element pairs with PSD
+                 C/J, nx in {2, 4, 8}, lane counts {1, 7, 4097, 2**20},
+                 float32 and float64, then ``kernel_suffix_scan`` against
+                 the plain suffix scan; ``flash_attention`` and
+                 ``ssd_chunked`` in float32 and bfloat16 on the reference's
+                 small test cases and at hymba-1.5b's prefill shapes;
+3. estimation -- ``Estimator(method="parallel_kernel").solve`` on the
+                 Wiener velocity model (paper section 5.1) at T = 2048
+                 blocks x nsub = 10 (N = 20480) in float64, for one record
+                 and for 64 stacked records, held against the port's
+                 ``parallel_rts`` on the card and its ``sequential_rts`` on
+                 the CPU, with the launch counts of ``lqt_combine``, the
+                 median solve time, one profiled solve per cell, and the
+                 kernel's time at the path's launch shapes;
+4. serving    -- ``ServeEngine.generate`` on hymba-1.5b at full width in
+                 bfloat16 (random weights from a seeded generator): 16
+                 requests of 2048 prompt tokens and 32 new tokens in two
+                 waves of 8, with the launch counts of both LM kernels
+                 (32 each per wave), prefill ms per wave, decode ms per
+                 step and tokens/s from CUDA events, and one profiled
+                 prefill and decode step;
+5. cross-path -- the same weights in float32, one wave of 8 x 2048
+                 tokens: prefill logits of the kernel path against the
+                 plain path, and their first generated tokens;
+6. LM kernels -- each LM kernel's time at the serving path's shapes,
+                 beside its plain version, the PyTorch library call where
+                 there is one, and its bound;
+7. report     -- one JSON line of per-kernel numbers, the card's name and
+                 power limit, and the final status line.
 
 It needs a CUDA card: without one it exits non-zero and prints no result.
 It imports only the port, never the JAX reference package.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -35,15 +54,18 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-# H100 SXM peaks: HBM3 rate and the non-tensor-core float rates (NVIDIA
-# data sheet).
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, the non-tensor-core
+# float rates, and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
+              torch.bfloat16: 989e12}
 
 N_BLOCKS, NSUB, RECORDS = 2048, 10, 64
 SEED = 0
@@ -52,6 +74,25 @@ SEED = 0
 # the conditioning of M = I + C1 J2 (at most a few hundred for these
 # operands), so float64 stays far below 1e-10 and float32 below 1e-3.
 KERNEL_RTOL = {torch.float64: 1e-10, torch.float32: 1e-3}
+
+# hymba-1.5b serving cell: two waves of 8 prompts of 2048 tokens.  2048 is
+# a multiple of the 1024 window, the 256 SSD chunk and chunked_mha's 512
+# chunk, so the rolling cache is placed as decode expects.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW, LM_REQUESTS = (
+    "hymba-1.5b", 8, 2048, 32, 16)
+LM_MAX_LEN = LM_PROMPT + LM_NEW
+# LM kernels vs plain versions, from the reference's own test tolerances
+# (tests/test_kernels.py): attention allclose at 2e-5 (float32) / 2e-2
+# (bfloat16); SSD max abs error within 2e-5 (float32) / 0.04 (bfloat16)
+# of the output's magnitude.  The SSD rule is normwise because each output
+# sums up to Q * S products (256 * 128 at the largest case) of terms much
+# larger than the smallest outputs, in another order than the plain
+# version: float32 round-off scales with those terms, not elementwise.
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.04}
+# kernel path vs plain path on the whole model, float32: the two differ
+# by float32 sums in another order through 32 layers.
+CROSS_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -143,6 +184,27 @@ def device_time_ms(fn, reps: int) -> float:
     return total / 1e3 / reps
 
 
+def profile_summary(label: str, fn, wall_ms: float) -> None:
+    """One profiled call: device kernels, busy time against ``wall_ms``
+    (the call's CUDA-event time without the profiler), top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    count = sum(e.count for e in kern)
+    log(f"  {label}: {count} device kernels, device busy {busy:.3f} ms of "
+        f"a {wall_ms:.3f} ms call (idle share "
+        f"{max(0.0, 1 - busy / wall_ms):.3f})")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
+
+
 def scan_lane_counts(n: int, records: int) -> list:
     """Lane count of every combine the kernel scan launches for ``n`` scan
     elements of ``records`` records (the same tree the kernel scan in ``ops.py`` runs)."""
@@ -158,49 +220,49 @@ def scan_lane_counts(n: int, records: int) -> list:
     return counts
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a card",
-              file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(bound ms, "bytes" or "operations") on an H100 SXM."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
 
-    from repro_torch.configs.wiener_velocity import WienerVelocityConfig
-    from repro_torch.core import (
-        Estimator,
-        KernelOptions,
-        ParallelOptions,
-        Problem,
-        SequentialOptions,
-        simulate_linear,
-        suffix_scan,
-        time_grid,
-    )
+
+# ---------------------------------------------------------------------------
+# 1. build
+# ---------------------------------------------------------------------------
+
+def build_all(modules: dict) -> None:
+    """One ``nvcc`` per source, all started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as ex:
+        futures = {name: ex.submit(m.build) for name, m in modules.items()}
+        infos = {name: f.result() for name, f in futures.items()}
+    log(f"built {len(infos)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    for name, info in infos.items():
+        log(f"{name}: built in {info['seconds']:.1f} s "
+            f"(cached={info['cached']}) -> {info['library']}")
+        if not info["ptxas"]:
+            raise AssertionError(f"{name}: ptxas reported no kernel")
+        for row in info["ptxas"]:
+            inst = " ".join(f"{k}={v}" for k, v in row.items()
+                            if k not in ("registers", "spill_stores",
+                                         "spill_loads"))
+            log(f"  ptxas {name} {inst}: {row.get('registers')} registers, "
+                f"{row.get('spill_stores')} B spill stores, "
+                f"{row.get('spill_loads')} B spill loads")
+
+
+# ---------------------------------------------------------------------------
+# 2. kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def check_lqt(g, lqt_kernel, lqt_ref) -> None:
+    from repro_torch.core import suffix_scan
     from repro_torch.core.combine import lqt_combine
     from repro_torch.core.types import LQTElement
-    from repro_torch.kernels.lqt_combine import kernel as lqt_kernel
-    from repro_torch.kernels.lqt_combine import ref as lqt_ref
     from repro_torch.kernels.lqt_combine.ops import kernel_suffix_scan
 
-    t_start = time.perf_counter()
-    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-        f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
-
-    # -- 1. build ---------------------------------------------------------
-    phase("build")
-    info = lqt_kernel.build()
-    log(f"lqt_combine: built in {info['seconds']:.1f} s "
-        f"(cached={info['cached']}) -> {info['library']}")
-    for row in info["ptxas"]:
-        log(f"  ptxas lqt_combine nx={row['nx']} {row['dtype']}: "
-            f"{row.get('registers')} registers, "
-            f"{row.get('spill_stores')} B spill stores, "
-            f"{row.get('spill_loads')} B spill loads")
-
-    # -- 2. kernel vs plain version --------------------------------------
-    phase("kernel vs plain version")
-    g = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in (torch.float32, torch.float64):
         for nx in (2, 4, 8):
             for B in (1, 7, 4097, 2 ** 20):
@@ -235,8 +297,119 @@ def main() -> int:
     if not rel_err < 1e-9:
         raise AssertionError("kernel_suffix_scan disagrees with suffix_scan")
 
-    # -- 3. main path -----------------------------------------------------
-    phase("main path")
+
+# (B, Hq, Hkv, Lq, Lk, D, causal, window): the reference's five test cases,
+# two ragged-edge cases, and hymba-1.5b's prefill.
+FA_CASES = [
+    (2, 4, 2, 64, 64, 16, True, None),
+    (1, 6, 2, 32, 32, 32, True, 24),
+    (2, 4, 4, 16, 64, 16, True, None),
+    (1, 2, 1, 64, 64, 8, False, None),
+    (1, 8, 1, 128, 128, 16, True, 32),
+    (1, 4, 2, 100, 300, 128, True, None),
+    (1, 4, 2, 200, 200, 64, True, 70),
+    (8, 25, 5, 2048, 2048, 64, True, 1024),
+]
+# (BH, L, P, S, chunk): the reference's four test shapes (heads folded in),
+# two more, and hymba-1.5b's prefill (8 x 50 heads).
+SSD_CASES = [
+    (8, 64, 16, 8, 16),
+    (6, 48, 32, 16, 16),
+    (4, 40, 8, 4, 8),
+    (2, 128, 64, 64, 64),
+    (4, 512, 128, 128, 256),
+    (3, 300, 64, 16, 100),
+    (400, 2048, 64, 16, 256),
+]
+
+
+def fa_inputs(case, dtype, g):
+    B, Hq, Hkv, Lq, Lk, D, _, _ = case
+    return tuple(torch.randn(s, generator=g, device="cuda").to(dtype)
+                 for s in ((B, Hq, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D)))
+
+
+def ssd_inputs(case, dtype, g):
+    BH, L, P, S, _ = case
+    l = -torch.rand(BH, L, generator=g, device="cuda") * 0.2
+    return (l,) + tuple(
+        torch.randn(s, generator=g, device="cuda").to(dtype)
+        for s in ((BH, L, P), (BH, L, S), (BH, L, S)))
+
+
+def check_fa(g, fa_kernel, fa_ref) -> float:
+    """Returns the max abs error at hymba's prefill shape in bfloat16."""
+    err_main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FA_CASES:
+            causal, window = case[6], case[7]
+            q, k, v = fa_inputs(case, dtype, g)
+            got = fa_kernel.flash_attention(q, k, v, causal=causal,
+                                            window=window)
+            want = fa_ref.mha_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            tol = FA_TOL[dtype]
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / max(float(want.float().abs().max()), 1e-30)
+            ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                     atol=tol))
+            log(f"  flash_attention {str(dtype)[6:]} {case}: max abs err "
+                f"{err:.3e}, rel {rel:.3e} (allclose rtol=atol={tol:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention kernel disagrees with "
+                                     f"its plain version: {dtype} {case}")
+            if case == FA_CASES[-1] and dtype == torch.bfloat16:
+                err_main = err
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return err_main
+
+
+def check_ssd(g, ssd_kernel, ssd_ref) -> float:
+    """Returns the max abs error at hymba's prefill shape in bfloat16."""
+    err_main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SSD_CASES:
+            chunk = case[-1]
+            ins = ssd_inputs(case, dtype, g)
+            got = ssd_kernel.ssd_chunked(*ins, chunk=chunk)
+            want = ssd_ref.ssd_chunked_ref(*ins, chunk=chunk)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = max(float(want.float().abs().max()), 1e-30)
+            ok = err <= SSD_TOL[dtype] * scale
+            rule = f"abs <= {SSD_TOL[dtype]:.0e} max|want|"
+            log(f"  ssd_chunked {str(dtype)[6:]} {case}: max abs err "
+                f"{err:.3e}, rel {err / scale:.3e} ({rule}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ssd kernel disagrees with its plain "
+                                     f"version: {dtype} {case}")
+            if case == SSD_CASES[-1] and dtype == torch.bfloat16:
+                err_main = err
+            del ins, got, want
+    torch.cuda.empty_cache()
+    return err_main
+
+
+# ---------------------------------------------------------------------------
+# 3. estimation path
+# ---------------------------------------------------------------------------
+
+def estimation_path(g, lqt_kernel, lqt_ref) -> dict:
+    """Returns the report row of ``lqt_combine``."""
+    from repro_torch.configs.wiener_velocity import WienerVelocityConfig
+    from repro_torch.core import (
+        Estimator,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+        SequentialOptions,
+        simulate_linear,
+        time_grid,
+    )
+
     cfg = WienerVelocityConfig()
     model = cfg.model(dtype=torch.float64, device="cuda")
     N = N_BLOCKS * NSUB
@@ -309,29 +482,13 @@ def main() -> int:
             log(f"  solve {name} {label}: median {solve_ms[(name, label)]:.3f}"
                 f" ms over 5 runs (CUDA events, after one warm-up)")
 
-    # -- where the time goes: one profiled solve per cell -----------------
-    phase("profile")
-    from torch.profiler import ProfilerActivity, profile
-
+    phase("estimation profile")
     for name, p in problems.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            est_k.solve(p)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kern) / 1e3
-        count = sum(e.count for e in kern)
-        solve = solve_ms[(name, "parallel_kernel")]
-        log(f"  {name} parallel_kernel: {count} device kernels, device busy "
-            f"{busy:.3f} ms of a {solve:.3f} ms solve (idle share "
-            f"{max(0.0, 1 - busy / solve):.3f})")
-        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
-                f"x{e.count:<5d} {e.key[:90]}")
+        profile_summary(f"{name} parallel_kernel", lambda: est_k.solve(p),
+                        solve_ms[(name, "parallel_kernel")])
 
-    # -- kernel timing at the main path's launch shapes -------------------
-    phase("kernel timing at the main path's shapes")
+    phase("lqt_combine timing at the estimation path's shapes")
+    n_elems = N_BLOCKS + 1
     shapes = (scan_lane_counts(n_elems, 1)
               + scan_lane_counts(n_elems, RECORDS))
     if len(shapes) != launches:
@@ -360,15 +517,12 @@ def main() -> int:
         p_wall += mult * cuda_time_ms(plain, 10)
         bytes_ += mult * B * combine_bytes(4, 8)
         flops += mult * B * combine_flops(4)
-    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / PEAK_FLOPS[torch.float64] * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_ms, bound_by = bound(bytes_, flops, torch.float64)
     log(f"  {len(shapes)} launches, lanes per launch {sorted(shapes)}")
     log(f"  summed over the launches of one single + one {RECORDS}-record "
         f"solve: kernel device {k_dev:.4f} ms (wall {k_wall:.4f} ms), plain "
         f"version device {p_dev:.4f} ms (wall {p_wall:.4f} ms), bound "
-        f"{bound_ms:.5f} ms ({bound_bytes_ms:.5f} ms for {bytes_:.0f} B, "
-        f"{bound_ops_ms:.5f} ms for {flops:.0f} FLOP)")
+        f"{bound_ms:.5f} ms ({bound_by}; {bytes_:.0f} B, {flops:.0f} FLOP)")
     for B in (max(shapes), 1024, 1):
         ops1, ops2 = random_pairs(4, B, torch.float64, g)
         dev = device_time_ms(
@@ -380,10 +534,7 @@ def main() -> int:
             f"{wall:.5f} ms per launch, bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
             f"({nbytes / dev / 1e9:.3f} TB/s achieved)")
-
-    # -- 4. report --------------------------------------------------------
-    phase("report")
-    kernels = [{
+    return {
         "name": "lqt_combine",
         "route": "cuda",
         "source": "src/repro_torch/kernels/lqt_combine/csrc/lqt_combine.cu",
@@ -393,10 +544,266 @@ def main() -> int:
         "ms": k_dev,
         "plain_ms": p_dev,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
-        else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
-    }]
+    }
+
+
+# ---------------------------------------------------------------------------
+# 4-6. language-model serving path
+# ---------------------------------------------------------------------------
+
+def lm_requests(cfg, Request):
+    rng = np.random.default_rng(SEED)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, LM_PROMPT)
+                    .astype(np.int32), max_new_tokens=LM_NEW)
+            for _ in range(LM_REQUESTS)]
+
+
+def serving_path(cfg, params, fa_kernel, ssd_kernel) -> dict:
+    """Returns the launch counts of the two LM kernels on the path."""
+    from repro_torch.serving import Request, ServeEngine
+
+    engine = ServeEngine(cfg, params, batch=LM_BATCH, max_len=LM_MAX_LEN)
+    reqs = lm_requests(cfg, Request)
+    waves = -(-LM_REQUESTS // LM_BATCH)
+    fa_kernel.reset_launch_count()
+    ssd_kernel.reset_launch_count()
+    t0 = time.perf_counter()
+    done = engine.generate(reqs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa_kernel.launch_count(),
+                "ssd_chunked": ssd_kernel.launch_count()}
+    log(f"main path launches ({waves} waves): {launches}; first generate "
+        f"(kernels already built) {first_s:.2f} s")
+    for name, n in launches.items():
+        if n != cfg.num_layers * waves:
+            raise AssertionError(f"{name}: {n} launches, expected "
+                                 f"{cfg.num_layers} per wave x {waves}")
+    for r in done:
+        if r.out.shape != (LM_NEW,) or not (
+                (r.out >= 0) & (r.out < cfg.vocab_size)).all():
+            raise AssertionError(f"bad output tokens {r.out}")
+    log(f"  {len(done)} requests, {LM_NEW} tokens each; first request's "
+        f"tokens {r.out[:8].tolist()}...")
+
+    # timed second run of the whole path (everything warm)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    done = engine.generate(lm_requests(cfg, Request))
+    stop.record()
+    torch.cuda.synchronize()
+    gen_ms = start.elapsed_time(stop)
+    new_tokens = sum(len(r.out) for r in done)
+    log(f"  generate: {gen_ms:.1f} ms for {LM_REQUESTS} requests x "
+        f"{LM_PROMPT} prompt tokens, {new_tokens} new tokens -> "
+        f"{new_tokens / gen_ms * 1e3:.1f} new tokens/s, "
+        f"{(LM_REQUESTS * LM_PROMPT + new_tokens) / gen_ms * 1e3:.0f} "
+        f"tokens/s with the prompts (CUDA events)")
+
+    toks = torch.as_tensor(np.stack([r.prompt for r in done[:LM_BATCH]]),
+                           dtype=torch.int64, device="cuda")
+    times = []
+    for _ in range(3):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        logits, caches = engine._prefill(toks)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    prefill_ms = statistics.median(times)
+    if tuple(logits.shape) != (LM_BATCH, 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError("prefill logits not finite or misshapen")
+    log(f"  prefill: median {prefill_ms:.3f} ms per wave of {LM_BATCH} x "
+        f"{LM_PROMPT} tokens over 3 runs ({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} "
+        f"tokens/s)")
+    cur = torch.argmax(logits[:, -1], dim=-1)
+    steps = []
+    for _ in range(LM_NEW - 1):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        logits, caches = engine._decode(cur, caches)
+        cur = torch.argmax(logits, dim=-1)
+        stop.record()
+        torch.cuda.synchronize()
+        steps.append(start.elapsed_time(stop))
+    decode_ms = statistics.median(steps)
+    log(f"  decode: median {decode_ms:.3f} ms per step of {LM_BATCH} tokens "
+        f"over {len(steps)} steps (min {min(steps):.3f}, max "
+        f"{max(steps):.3f}; {LM_BATCH / decode_ms * 1e3:.1f} tokens/s)")
+
+    phase("serving profile")
+    profile_summary("prefill (one wave)", lambda: engine._prefill(toks),
+                    prefill_ms)
+    profile_summary("decode step", lambda: engine._decode(cur, caches),
+                    decode_ms)
+    return launches
+
+
+def cross_path(cfg, params) -> None:
+    """Kernel path vs plain path on the same weights in float32."""
+    from repro_torch.models import transformer
+    from repro_torch.serving import Request
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def to32(tree):
+        return ({k: to32(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.float())
+
+    p32 = to32(params)
+    reqs = lm_requests(cfg, Request)[:LM_BATCH]
+    toks = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                           dtype=torch.int64, device="cuda")
+    out = {}
+    for use_kernel in (True, False):
+        logits, _ = transformer.prefill(p32, {"tokens": toks}, cfg32,
+                                        LM_MAX_LEN, use_kernel=use_kernel)
+        out[use_kernel] = logits[:, -1, :cfg.vocab_size]
+        torch.cuda.synchronize()
+    err = float((out[True] - out[False]).abs().max())
+    scale = float(out[False].abs().max())
+    tok_k = torch.argmax(out[True], dim=-1)
+    tok_p = torch.argmax(out[False], dim=-1)
+    same = bool((tok_k == tok_p).all())
+    log(f"  float32 prefill logits, kernel path vs plain path, "
+        f"{LM_BATCH} x {LM_PROMPT} tokens: max abs err {err:.3e}, "
+        f"relative to max|logit| {err / scale:.3e} (tol {CROSS_RTOL:.0e}); "
+        f"first tokens equal: {same} ({tok_k.tolist()})")
+    if not (err <= CROSS_RTOL * scale and same):
+        raise AssertionError("kernel path disagrees with the plain path")
+
+
+def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
+                     g, errs) -> list:
+    """Report rows of the two LM kernels at the serving path's shapes."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    rows = []
+    # flash attention: q (8, 25, 2048, 64), k/v (8, 5, 2048, 64), window
+    case = (LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT, LM_PROMPT,
+            cfg.hd, True, cfg.window)
+    q, k, v = fa_inputs(case, bf16, g)
+    B, Hq, Hkv, L, _, D, _, W = case
+    ms = cuda_time_ms(lambda: fa_kernel.flash_attention(
+        q, k, v, causal=True, window=W), 10)
+    plain = cuda_time_ms(lambda: fa_ref.mha_ref(q, k, v, causal=True,
+                                                window=W), 3)
+    rows_ = torch.arange(L, device="cuda")[:, None]
+    cols = torch.arange(L, device="cuda")[None, :]
+    band = (rows_ >= cols) & (rows_ - cols < W)
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=band, enable_gqa=True), 5)
+    pairs = int(band.sum()) * B * Hq
+    flops = 4 * D * pairs                       # QK^T and PV inside the band
+    nbytes = 2 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D)
+    b_ms, b_by = bound(nbytes, flops, bf16)
+    n = launches["flash_attention"]
+    log(f"  flash_attention {case} bf16, per launch: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, scaled_dot_product_attention with the band "
+        f"mask (enable_gqa=True) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+        f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+        "launches": n, "max_abs_err": errs["flash_attention"],
+        "ms": ms * n, "plain_ms": plain * n, "bound_ms": b_ms * n,
+        "bound_by": b_by, "library_ms": lib_ms * n})
+    del q, k, v, band
+    torch.cuda.empty_cache()
+
+    # chunked SSD: l (400, 2048) f32, dtx (400, 2048, 64), B/C (400, 2048, 16)
+    case = (LM_BATCH * cfg.ssm_heads, LM_PROMPT, cfg.ssm_head_dim,
+            cfg.ssm_state, cfg.ssm_chunk)
+    ins = ssd_inputs(case, bf16, g)
+    BH, L, P, S, Q = case
+    ms = cuda_time_ms(lambda: ssd_kernel.ssd_chunked(*ins, chunk=Q), 10)
+    plain = cuda_time_ms(lambda: ssd_ref.ssd_chunked_ref(*ins, chunk=Q), 3)
+    tri = Q * (Q + 1) // 2
+    flops = BH * (L // Q) * (2 * Q * P * S          # C . state
+                             + 2 * tri * S          # C B^T, lower triangle
+                             + 2 * tri * P          # (M o G) dtx
+                             + 2 * Q * P * S)       # state increment
+    nbytes = BH * L * (4 + 2 * (2 * P + 2 * S))
+    b_ms, b_by = bound(nbytes, flops, bf16)
+    n = launches["ssd_chunked"]
+    log(f"  ssd_chunked {case} bf16, per launch: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, no library call, bound {b_ms:.4f} ms ({b_by}: "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+        f"{nbytes / ms / 1e9:.3f} TB/s achieved")
+    rows.append({
+        "name": "ssd_chunked", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:73",
+        "launches": n, "max_abs_err": errs["ssd_chunked"],
+        "ms": ms * n, "plain_ms": plain * n, "bound_ms": b_ms * n,
+        "bound_by": b_by, "library_ms": None})
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a card",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.lqt_combine import kernel as lqt_kernel
+    from repro_torch.kernels.lqt_combine import ref as lqt_ref
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.models import transformer
+
+    t_start = time.perf_counter()
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
+
+    phase("build")
+    build_all({"lqt_combine": lqt_kernel, "flash_attention": fa_kernel,
+               "ssd_chunked": ssd_kernel})
+
+    phase("kernel vs plain version")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    check_lqt(g, lqt_kernel, lqt_ref)
+    errs = {"flash_attention": check_fa(g, fa_kernel, fa_ref),
+            "ssd_chunked": check_ssd(g, ssd_kernel, ssd_ref)}
+
+    phase("estimation path")
+    kernels = [estimation_path(g, lqt_kernel, lqt_ref)]
+    torch.cuda.empty_cache()
+
+    phase(f"serving path: {LM_ARCH}, bfloat16, full width")
+    cfg = get_config(LM_ARCH)
+    params = transformer.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters ({cfg.param_count() / 1e9:.3f} B "
+        f"by the config's count), random weights (seed {SEED})")
+    launches = serving_path(cfg, params, fa_kernel, ssd_kernel)
+    torch.cuda.empty_cache()
+
+    phase("kernel path vs plain path, float32")
+    cross_path(cfg, params)
+    torch.cuda.empty_cache()
+
+    phase("LM kernel timing at the serving path's shapes")
+    kernels += lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel,
+                                ssd_ref, g, errs)
+
+    phase("report")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -408,6 +815,14 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 if __name__ == "__main__":

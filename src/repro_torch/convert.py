@@ -1,9 +1,10 @@
 """Carry the reference package's state across as numpy arrays.
 
 The port never imports the reference package: a caller (for example a
-parity test) turns the reference's model, grid or elements into numpy
-arrays (``numpy.asarray`` of each field) and these helpers build the
-port's objects from them, on an explicit device and dtype.
+parity test) turns the reference's model, grid, elements or parameter
+tree into numpy arrays (``numpy.asarray`` of each field) and these
+helpers build the port's objects from them, on an explicit device and
+dtype.
 """
 from __future__ import annotations
 
@@ -55,3 +56,25 @@ def elements_from_numpy(arrays: Arrays, *, device="cpu",
     """``A, b, C, eta, J`` (by name or in order) -> :class:`LQTElement`."""
     return LQTElement(*(_to(a, device, dtype)
                         for a in _fields(arrays, LQTElement._fields)))
+
+
+def _np_to_tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.as_tensor refuses; float32
+        # holds every bfloat16 value exactly.
+        t = torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.as_tensor(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def lm_params_from_numpy(tree, *, device="cpu", dtype=None) -> dict:
+    """A language-model parameter tree (nested dicts of numpy arrays, the
+    reference's names and layouts) -> the port's tree of tensors on
+    ``device``, cast to ``dtype`` (``None`` keeps each array's dtype;
+    bfloat16 arrays stay bfloat16)."""
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_numpy(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    return _np_to_tensor(tree, device, dtype)

@@ -165,7 +165,7 @@ def resolve_device(device=None) -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to solve on the CPU")
+            "CUDA is not available; pass device='cpu' to run on the CPU")
     return device
 
 

@@ -21,23 +21,15 @@ tensors it launches the kernel or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from .._build import BUILD_DIR, compile_library, parse_ptxas  # noqa: F401
 from .ref import lqt_combine_lanes_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lqt_combine.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_NX = 8
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _MAT = (True, False, True, False, True)     # A, b, C, eta, J
@@ -57,38 +49,12 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    cand.append(shutil.which("nvcc"))
-    for c in cand:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the lqt_combine kernel is built "
-                       "from source and needs the CUDA toolkit")
-
-
 def _parse_ptxas(log: str) -> list:
     """Registers and spills per kernel instantiation from ``-Xptxas -v``."""
-    rows, cur = [], None
-    for line in log.splitlines():
-        m = re.search(r"lqt_combine_kernelILi(\d+)E([fd])E", line)
-        if m and "Compiling entry function" in line:
-            cur = {"nx": int(m.group(1)),
-                   "dtype": "float32" if m.group(2) == "f" else "float64"}
-            rows.append(cur)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur["spill_stores"] = int(m.group(1))
-            cur["spill_loads"] = int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
+    rows = parse_ptxas(
+        log, r"lqt_combine_kernelILi(\d+)E([fd])E",
+        lambda m: {"nx": int(m.group(1)),
+                   "dtype": "float32" if m.group(2) == "f" else "float64"})
     return sorted(rows, key=lambda r: (r["dtype"], r["nx"]))
 
 
@@ -102,26 +68,7 @@ def build() -> dict:
     global _lib, _build_info
     if _build_info is not None:
         return _build_info
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"liblqt_combine_{digest}.so"
-    log_path = so.with_suffix(".ptxas.txt")
-    seconds, cached = 0.0, so.exists()
-    if not cached:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, info = compile_library("lqt_combine", SOURCE)
     fn = lib.lqt_combine_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_void_p),
@@ -129,9 +76,9 @@ def build() -> dict:
                    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
-    log = log_path.read_text() if log_path.exists() else ""
-    _build_info = {"library": str(so), "seconds": seconds, "cached": cached,
-                   "ptxas": _parse_ptxas(log)}
+    _build_info = {"library": info["library"], "seconds": info["seconds"],
+                   "cached": info["cached"],
+                   "ptxas": _parse_ptxas(info["log"])}
     return _build_info
 
 

@@ -1,0 +1,90 @@
+"""Plain PyTorch versions of the chunked SSD (state-space dual) scan.
+
+The SSD recurrence is the paper's affine trajectory recursion (eqs.
+45-46) with a diagonal (scalar-per-head) transition:
+
+    h_t = exp(dt_t A_h) h_{t-1} + dt_t x_t (x) B_t        (Phi, beta)
+    y_t = h_t C_t^T  (+ D_h x_t)
+
+* :func:`ssd_ref` -- the sequential oracle (the reference's
+  ``repro/kernels/ssd/ref.py::ssd_ref``): exact, O(L) steps.
+* :func:`ssd_chunked_ref` -- the kernel's plain version: the arithmetic
+  and casts of the reference's ``_ssd_kernel`` chunk by chunk, on the
+  kernel's operands ``(l, dtx, B, C)``.  The CPU path of the kernel
+  wrapper, and what ``chip_smoke.py`` holds the CUDA kernel against.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ssd_ref(x, dt, A, B, C, D=None):
+    """Sequential SSD scan.
+
+    Args:
+      x:  (batch, L, H, P)
+      dt: (batch, L, H)      positive step sizes (already softplus'ed)
+      A:  (H,)               negative per-head decay rates
+      B:  (batch, L, G, S)   input projections (G groups, H % G == 0)
+      C:  (batch, L, G, S)   output projections
+      D:  optional (H,)      skip connection
+    Returns:
+      y: (batch, L, H, P) in x's dtype
+    """
+    b, L, H, P = x.shape
+    G, S = B.shape[2], B.shape[3]
+    rep = H // G
+    Bh = torch.repeat_interleave(B, rep, dim=2)       # (b, L, H, S)
+    Ch = torch.repeat_interleave(C, rep, dim=2)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    h = torch.zeros((b, H, P, S), dtype=acc, device=x.device)
+    ys = []
+    for t in range(L):
+        a = torch.exp(dt[:, t] * A)                   # (b, H)
+        h = (a[..., None, None] * h
+             + (dt[:, t, :, None] * x[:, t])[..., None] * Bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhps,bhs->bhp", h, Ch[:, t].to(h.dtype)))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    if D is not None:
+        y = y + D[None, None, :, None] * x
+    return y
+
+
+def ssd_chunked_ref(l, dtx, B, C, *, chunk: int):
+    """Chunked SSD scan on the kernel's operands.
+
+    Args:
+      l:   (BH, L) float32   log decays dt*A (<= 0)
+      dtx: (BH, L, P)        dt-weighted inputs
+      B:   (BH, L, S)
+      C:   (BH, L, S)        (dtx, B, C of one dtype; L % chunk == 0)
+    Returns:
+      y: (BH, L, P) in dtx's dtype
+    """
+    BH, L, P = dtx.shape
+    S = B.shape[-1]
+    f32 = torch.float32
+    state = torch.zeros((BH, P, S), dtype=f32, device=dtx.device)
+    ids = torch.arange(chunk, device=dtx.device)
+    causal = ids[:, None] >= ids[None, :]
+    ys = []
+    for c0 in range(0, L, chunk):
+        sl = slice(c0, c0 + chunk)
+        lc = l[:, sl].to(f32)
+        dtxc, Bc, Cc = (a[:, sl].to(f32) for a in (dtx, B, C))
+        cum = torch.cumsum(lc, dim=1)                  # (BH, Q)
+        total = cum[:, -1]
+        # inter-chunk contribution: y_t += exp(cum_t) * C_t . state
+        y_inter = torch.exp(cum)[..., None] * torch.einsum(
+            "bqs,bps->bqp", Cc, state)
+        # intra-chunk: masked decay kernel M[t,s] = exp(cum_t - cum_s)[s<=t]
+        M = torch.where(causal, torch.exp(cum[:, :, None] - cum[:, None, :]),
+                        torch.zeros((), dtype=f32, device=dtx.device))
+        G = torch.einsum("bts,bks->btk", Cc, Bc)
+        y_intra = torch.einsum("btk,bkp->btp", M * G, dtxc)
+        ys.append((y_inter + y_intra).to(dtx.dtype))
+        # element fold (eqs. 45-46, diagonal Phi)
+        w = torch.exp(total[:, None] - cum)[..., None] * dtxc
+        inc = torch.einsum("btp,bts->bps", w, Bc)
+        state = torch.exp(total)[:, None, None] * state + inc
+    return torch.cat(ys, dim=1)

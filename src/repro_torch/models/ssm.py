@@ -1,0 +1,285 @@
+"""Mamba2 (SSD) mixer -- built on the paper's affine scan.
+
+The SSD recurrence h_t = exp(dt A) h_{t-1} + dt x_t (x) B_t is the paper's
+trajectory recursion (eqs. 45-46) with a diagonal transition.  Two
+execution paths for the full sequence:
+
+* ``ssd_scan_chunked`` -- plain PyTorch in float32: per-chunk elements
+  (decay, state increment) folded by an associative prefix scan
+  (``repro_torch.core.pscan.prefix_scan``), the intra-chunk part dense.
+  The reference's ``ServeEngine`` runs this path.
+* ``use_kernel=True`` -- the CUDA chunked-SSD kernel
+  (``repro_torch.kernels.ssd``), as the reference swaps in its Pallas
+  kernel on the accelerator.  On CPU tensors the kernel wrapper runs its
+  plain version.
+
+Layer structure follows mamba2: in_proj -> [z | x | B | C | dt], short
+depthwise conv on (x, B, C), SSD scan, gated RMSNorm, out_proj.  The
+reference's ``logical_constraint`` sharding pins are the identity on one
+card and are dropped here.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.pscan import prefix_scan
+from repro_torch.kernels.ssd import ssd as ssd_kernel_op
+
+from .layers import P, rms_norm
+
+
+def ssm_spec(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    din = cfg.ssm_inner
+    gs = cfg.ssm_groups * cfg.ssm_state
+    H = cfg.ssm_heads
+    conv_dim = din + 2 * gs
+    common = {
+        "A_log": P((H,), ("ssm_heads",), init="ones"),
+        "D_skip": P((H,), ("ssm_heads",), init="ones"),
+        "dt_bias": P((H,), ("ssm_heads",), init="zeros"),
+        "gate_norm": P((din,), ("ssm_inner",), init="ones"),
+        "w_out": P((din, D), ("ssm_inner", "embed")),
+    }
+    if cfg.ssm_fused_proj:
+        return {
+            "w_in": P((D, 2 * din + 2 * gs + H), ("embed", "ssm_x")),
+            "conv_w": P((cfg.ssm_conv, conv_dim), (None, "ssm_x"),
+                        fan_in=cfg.ssm_conv),
+            "conv_b": P((conv_dim,), ("ssm_x",), init="zeros"),
+            **common,
+        }
+    return {
+        "w_z": P((D, din), ("embed", "ssm_inner")),
+        "w_x": P((D, din), ("embed", "ssm_inner")),
+        "w_B": P((D, gs), ("embed", "ssm_x")),
+        "w_C": P((D, gs), ("embed", "ssm_x")),
+        "w_dt": P((D, H), ("embed", "ssm_heads")),
+        "conv_x_w": P((cfg.ssm_conv, din), (None, "ssm_inner"),
+                      fan_in=cfg.ssm_conv),
+        "conv_x_b": P((din,), ("ssm_inner",), init="zeros"),
+        "conv_B_w": P((cfg.ssm_conv, gs), (None, "ssm_x"),
+                      fan_in=cfg.ssm_conv),
+        "conv_B_b": P((gs,), ("ssm_x",), init="zeros"),
+        "conv_C_w": P((cfg.ssm_conv, gs), (None, "ssm_x"),
+                      fan_in=cfg.ssm_conv),
+        "conv_C_b": P((gs,), ("ssm_x",), init="zeros"),
+        **common,
+    }
+
+
+class SSMCache(NamedTuple):
+    """Decode-time state: conv tail + SSD state (O(1) in context length)."""
+    conv: torch.Tensor    # (B, conv_k - 1, conv_dim)
+    state: torch.Tensor   # (B, H, P, S) float32
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt):
+    din = cfg.ssm_inner
+    gs = cfg.ssm_groups * cfg.ssm_state
+    H = cfg.ssm_heads
+    return torch.split(zxbcdt, [din, din, gs, gs, H], dim=-1)
+
+
+def ssd_scan_chunked(x, dt, A, B, C, D, chunk: int):
+    """Chunked SSD in float32: the paper's block-element + scan pattern.
+
+    Stage 1 builds per-chunk elements, stage 2 folds them with an
+    associative prefix scan (eqs. 45-46, diagonal Phi), stage 3 emits the
+    per-chunk outputs one chunk at a time (the (Q, Q, H) decay tensor
+    exists for one chunk only).
+
+    x: (b, L, H, P); dt: (b, L, H); A: (H,); B, C: (b, L, G, S); D: (H,).
+    """
+    b, L0, H, Pd = x.shape
+    G, S = B.shape[2], B.shape[3]
+    rep = H // G
+    Q = min(chunk, L0)
+    pad = (-L0) % Q
+    if pad:  # dt=0 padding steps are exact identity elements
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    L = L0 + pad
+    nc = L // Q
+
+    f32 = torch.float32
+    l = dt.float() * A.float()[None, None, :]                 # (b, L, H)
+    dtx = dt.float()[..., None] * x.float()                   # (b, L, H, P)
+
+    # chunk-major views (chunk axis first for the scan)
+    lc = l.reshape(b, nc, Q, H).movedim(1, 0)                 # (nc,b,Q,H)
+    cum = torch.cumsum(lc, dim=2)
+    total = cum[:, :, -1]                                     # (nc,b,H)
+    dtxc = dtx.reshape(b, nc, Q, H, Pd).movedim(1, 0)
+    Bc = B.float().reshape(b, nc, Q, G, S).movedim(1, 0)
+    Cc = C.float().reshape(b, nc, Q, G, S).movedim(1, 0)
+
+    # stage 1 -- per-chunk elements (parallel over chunks):
+    w = torch.exp(total[:, :, None] - cum)[..., None] * dtxc  # (nc,b,Q,H,P)
+    wg = w.reshape(nc, b, Q, G, rep, Pd)
+    inc = torch.einsum("nbqgrp,nbqgs->nbgrps", wg, Bc)
+    inc = inc.reshape(nc, b, H, Pd, S)                        # (nc,b,H,P,S)
+
+    # stage 2 -- associative inter-chunk scan (paper eqs. 45-46):
+    def combine(e1, e2):
+        t1, i1 = e1
+        t2, i2 = e2
+        return (t1 + t2, torch.exp(t2)[..., None, None] * i1 + i2)
+
+    _, inc_in = prefix_scan(combine, (total, inc))
+    # exclusive prefix: state entering chunk c
+    h_prev = torch.cat(
+        [torch.zeros((1, b, H, Pd, S), dtype=f32, device=x.device),
+         inc_in[:-1]], dim=0)
+
+    # stage 3 -- per-chunk outputs, one chunk in flight at a time:
+    ids = torch.arange(Q, device=x.device)
+    causal = ids[:, None] >= ids[None, :]
+    ys = []
+    for c in range(nc):
+        cumc, dtxk, Bk, Ck, hk = cum[c], dtxc[c], Bc[c], Cc[c], h_prev[c]
+        # inter: y_t = exp(cum_t) * C_t . h_prev
+        hg = hk.reshape(b, G, rep, Pd, S)
+        y_inter = torch.einsum("bqgs,bgrps->bqgrp", Ck, hg)
+        y_inter = y_inter * torch.exp(cumc).reshape(b, Q, G, rep, 1)
+        # intra: masked decay kernel
+        Gmat = torch.einsum("bqgs,bkgs->bgqk", Ck, Bk)        # (b,G,Q,Q)
+        dec = torch.exp(cumc[:, :, None, :] - cumc[:, None, :, :])
+        dec = torch.where(causal[None, :, :, None], dec,
+                          torch.zeros((), dtype=f32, device=x.device))
+        decg = dec.reshape(b, Q, Q, G, rep)
+        M = Gmat.permute(0, 2, 3, 1)[..., None] * decg        # (b,Q,Q,G,rep)
+        dtxg = dtxk.reshape(b, Q, G, rep, Pd)
+        y_intra = torch.einsum("bqkgr,bkgrp->bqgrp", M, dtxg)
+        ys.append((y_inter + y_intra).reshape(b, Q, H, Pd))
+    y = torch.stack(ys, dim=1).reshape(b, L, H, Pd)
+    y = y + D.float()[None, None, :, None] * x.float()
+    return y[:, :L0].to(x.dtype)
+
+
+def _project_streams(params, x, cfg: ModelConfig):
+    """in_proj + causal conv + silu -> (z, x, B, C, dt) streams."""
+    din = cfg.ssm_inner
+    gs = cfg.ssm_groups * cfg.ssm_state
+    if cfg.ssm_fused_proj:
+        zxbcdt = x @ params["w_in"]
+        z, xs, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
+        xbc = torch.cat([xs, Bm, Cm], dim=-1)
+        xbc = F.silu(_causal_conv(xbc, params["conv_w"], params["conv_b"]))
+        xs, Bm, Cm = torch.split(xbc, [din, gs, gs], dim=-1)
+        return z, xs, Bm, Cm, dt
+    z = x @ params["w_z"]
+    xs = x @ params["w_x"]
+    Bm = x @ params["w_B"]
+    Cm = x @ params["w_C"]
+    dt = x @ params["w_dt"]
+    xs = F.silu(_causal_conv(xs, params["conv_x_w"], params["conv_x_b"]))
+    Bm = F.silu(_causal_conv(Bm, params["conv_B_w"], params["conv_B_b"]))
+    Cm = F.silu(_causal_conv(Cm, params["conv_C_w"], params["conv_C_b"]))
+    return z, xs, Bm, Cm, dt
+
+
+def ssm_forward(params, x, cfg: ModelConfig, *, use_kernel: bool = False):
+    """Full-sequence mamba2 block.  x: (B, L, D) -> (B, L, D)."""
+    Bb, L, _ = x.shape
+    z, xs, Bm, Cm, dt = _project_streams(params, x, cfg)
+
+    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+    xh = xs.reshape(Bb, L, H, Pd)
+    Bg = Bm.reshape(Bb, L, cfg.ssm_groups, cfg.ssm_state)
+    Cg = Cm.reshape(Bb, L, cfg.ssm_groups, cfg.ssm_state)
+    dth = F.softplus(dt + params["dt_bias"][None, None])
+    A = -torch.exp(params["A_log"].float())
+
+    if use_kernel:
+        y = ssd_kernel_op(xh, dth, A, Bg, Cg, params["D_skip"],
+                          chunk=cfg.ssm_chunk)
+    else:
+        y = ssd_scan_chunked(xh, dth, A, Bg, Cg, params["D_skip"],
+                             cfg.ssm_chunk)
+    y = y.reshape(Bb, L, cfg.ssm_inner)
+    y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
+    return y @ params["w_out"]
+
+
+def preconv_streams(params, x, cfg: ModelConfig):
+    """in_proj only (no conv/silu): (z, x, B, C, dt), each (B, L, *)."""
+    if cfg.ssm_fused_proj:
+        return _split_proj(cfg, x @ params["w_in"])
+    return (x @ params["w_z"], x @ params["w_x"], x @ params["w_B"],
+            x @ params["w_C"], x @ params["w_dt"])
+
+
+def conv_cat_weights(params, cfg: ModelConfig):
+    """(K, conv_dim) depthwise kernel over the concatenated (x, B, C)
+    streams (decode-cache layout is stream-concatenated in both modes)."""
+    if cfg.ssm_fused_proj:
+        return params["conv_w"], params["conv_b"]
+    w = torch.cat([params["conv_x_w"], params["conv_B_w"],
+                   params["conv_C_w"]], dim=1)
+    b = torch.cat([params["conv_x_b"], params["conv_B_b"],
+                   params["conv_C_b"]], dim=0)
+    return w, b
+
+
+def ssm_decode(params, x, cfg: ModelConfig, cache: SSMCache):
+    """One-token mamba2 step.  x: (B, 1, D) -> (out (B, 1, D), new cache)."""
+    Bb = x.shape[0]
+    z, xs, Bm, Cm, dt = (a[:, 0] for a in preconv_streams(params, x, cfg))
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)             # (B, conv_dim)
+
+    conv_hist = torch.cat([cache.conv, xbc[:, None]], dim=1)
+    w, bconv = conv_cat_weights(params, cfg)           # (K, conv_dim)
+    out = torch.einsum("bkc,kc->bc", conv_hist, w) + bconv
+    xbc = F.silu(out)
+    new_conv = conv_hist[:, 1:]
+
+    din = cfg.ssm_inner
+    gs = cfg.ssm_groups * cfg.ssm_state
+    xs, Bm, Cm = torch.split(xbc, [din, gs, gs], dim=-1)
+    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+    G, S = cfg.ssm_groups, cfg.ssm_state
+    rep = H // G
+    xh = xs.reshape(Bb, H, Pd).float()
+    Bg = Bm.reshape(Bb, G, S).float()
+    Cg = Cm.reshape(Bb, G, S).float()
+    dth = F.softplus(dt + params["dt_bias"][None]).float()
+    A = -torch.exp(params["A_log"].float())
+
+    a = torch.exp(dth * A[None])                       # (B, H)
+    Bh = Bg.repeat_interleave(rep, dim=1)              # (B, H, S)
+    Ch = Cg.repeat_interleave(rep, dim=1)
+    state = (a[..., None, None] * cache.state
+             + (dth[..., None] * xh)[..., None] * Bh[:, :, None, :])
+    y = torch.einsum("bhps,bhs->bhp", state, Ch)
+    y = y + params["D_skip"].float()[None, :, None] * xh
+    y = y.reshape(Bb, din).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
+    out = (y @ params["w_out"])[:, None]
+    return out, SSMCache(new_conv, state)
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv.  x: (B, L, C); w: (K, C)."""
+    K = w.shape[0]
+    L = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for k in range(K):
+        out = out + xp[:, k:k + L].float() * w[k]
+    return (out + b).to(x.dtype)
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None):
+    conv_dim = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return SSMCache(
+        torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                    dtype=torch.float32, device=device))

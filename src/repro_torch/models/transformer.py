@@ -1,0 +1,315 @@
+"""The language-model stack: decoder LMs with attn / ssm / hybrid mixers.
+
+Weights are stacked over layers on a leading axis, as in the reference;
+where the reference scans over that axis (``lax.scan``), the port loops
+over it in Python.  The reference's ``remat``/``remat_group`` choose what
+its backward recomputes; the port has no backward yet and ignores them.
+
+Public entry points:
+  init                        parameter tree
+  prefill                     full-sequence forward -> logits + caches
+  decode_step                 one token with caches -> logits + caches
+
+Not ported yet (ROADMAP.md, queue 1): ``train_loss``, the MoE layer, and
+``input_mode="embeddings"``; each raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+
+from . import attention as attn_mod
+from . import ssm as ssm_mod
+from .layers import (
+    P, activation, apply_rope, init_params, layer_slice, rms_norm,
+    rope_freqs, stack_specs,
+)
+
+_NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP.md, queue 1: the "
+               "language-model stack)")
+
+
+def _mlp_spec(cfg: ModelConfig) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    spec = {
+        "wu": P((D, F_), ("embed", "ff")),
+        "wd": P((F_, D), ("ff", "embed")),
+    }
+    if cfg.mlp_type == "gated":
+        spec["wg"] = P((D, F_), ("embed", "ff"))
+    return spec
+
+
+def layer_spec(cfg: ModelConfig) -> dict:
+    if cfg.is_moe:
+        raise NotImplementedError(f"the MoE layer {_NOT_PORTED}")
+    spec: dict = {"ln1": P((cfg.d_model,), ("embed",), init="ones")}
+    if cfg.mixer in ("attn", "hybrid"):
+        spec["attn"] = attn_mod.attn_spec(cfg)
+    if cfg.mixer in ("ssm", "hybrid"):
+        spec["ssm"] = ssm_mod.ssm_spec(cfg)
+    if cfg.mixer == "hybrid":
+        spec["attn_out_norm"] = P((cfg.d_model,), ("embed",), init="ones")
+        spec["ssm_out_norm"] = P((cfg.d_model,), ("embed",), init="ones")
+    if cfg.mlp_type != "none" and cfg.d_ff > 0:
+        spec["ln2"] = P((cfg.d_model,), ("embed",), init="ones")
+        spec["mlp"] = _mlp_spec(cfg)
+    return spec
+
+
+def model_spec(cfg: ModelConfig) -> dict:
+    D, V = cfg.d_model, cfg.padded_vocab
+    spec: dict = {
+        "layers": stack_specs(layer_spec(cfg), cfg.num_layers),
+        "final_norm": P((D,), ("embed",), init="ones"),
+    }
+    if cfg.input_mode == "tokens" or not cfg.is_encoder:
+        spec["embed"] = P((V, D), ("vocab", "embed_model"), fan_in=D)
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = P((D, V), ("embed_model", "vocab"))
+    return spec
+
+
+def _dtype(cfg: ModelConfig):
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, *,
+         device=None) -> dict:
+    """Random weights from ``generator`` (on its device unless ``device``
+    says otherwise), in the config's dtype."""
+    return init_params(generator, model_spec(cfg), _dtype(cfg), device)
+
+
+# ---------------------------------------------------------------------------
+# layer application
+# ---------------------------------------------------------------------------
+
+def _apply_mlp(p, x, cfg):
+    act = activation(cfg.act)
+    h = x @ p["wu"]
+    if cfg.mlp_type == "gated":
+        h = act(x @ p["wg"]) * h
+    else:
+        h = act(h)
+    return h @ p["wd"]
+
+
+def _embed_in(params, batch, cfg: ModelConfig):
+    if cfg.input_mode == "embeddings":
+        raise NotImplementedError(f"input_mode='embeddings' {_NOT_PORTED}")
+    return F.embedding(batch["tokens"], params["embed"])
+
+
+def _lm_logits(params, x, cfg: ModelConfig):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head
+    if cfg.padded_vocab != cfg.vocab_size:
+        # physical vocab padding: mask the pad columns
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def _mix(p, a, s, cfg):
+    """Hybrid mixer: the branch outputs normalised, then averaged."""
+    return 0.5 * (rms_norm(a, p["attn_out_norm"], cfg.norm_eps)
+                  + rms_norm(s, p["ssm_out_norm"], cfg.norm_eps))
+
+
+def _ffn(p, x, cfg):
+    if "mlp" in p:
+        x = x + _apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x
+
+
+def _layer_forward(p, x, cfg: ModelConfig, positions, use_kernel):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.mixer == "attn":
+        mix = attn_mod.attention_forward(p["attn"], h, cfg, positions,
+                                         use_kernel=use_kernel)
+    elif cfg.mixer == "ssm":
+        mix = ssm_mod.ssm_forward(p["ssm"], h, cfg, use_kernel=use_kernel)
+    else:
+        a = attn_mod.attention_forward(p["attn"], h, cfg, positions,
+                                       use_kernel=use_kernel)
+        s = ssm_mod.ssm_forward(p["ssm"], h, cfg, use_kernel=use_kernel)
+        mix = _mix(p, a, s, cfg)
+    return _ffn(p, x + mix, cfg)
+
+
+def train_loss(params, batch, cfg: ModelConfig, **kw):
+    raise NotImplementedError(f"train_loss {_NOT_PORTED}")
+
+
+class LayerCaches(NamedTuple):
+    attn: Optional[Any] = None
+    ssm: Optional[Any] = None
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Zeroed caches stacked over layers (a leading num_layers axis)."""
+    dt = _dtype(cfg)
+
+    def stack(c):
+        return type(c)(*(torch.zeros((cfg.num_layers,) + tuple(a.shape),
+                                     dtype=a.dtype, device=a.device)
+                         for a in c))
+
+    attn = ssmc = None
+    if cfg.mixer in ("attn", "hybrid"):
+        attn = stack(attn_mod.init_kv_cache(cfg, batch, max_len, dt, device))
+    if cfg.mixer in ("ssm", "hybrid"):
+        ssmc = stack(ssm_mod.init_ssm_cache(cfg, batch, dt, device))
+    return LayerCaches(attn, ssmc)
+
+
+def _layer_cache(caches: LayerCaches, i: int) -> LayerCaches:
+    """Layer ``i``'s caches as views of the stacked ones."""
+    return LayerCaches(*(None if c is None else type(c)(*(a[i] for a in c))
+                         for c in caches))
+
+
+@torch.no_grad()
+def prefill(params, batch, cfg: ModelConfig, max_len: int, *,
+            use_kernel: bool = False):
+    """Full-sequence forward that also fills the decode caches.
+
+    batch: ``{"tokens": (B, L) int}``.  Returns the last position's logits
+    (B, 1, V) and the caches stacked over layers.  As in the reference,
+    each layer's caches come from re-running its mixers in cache-filling
+    mode; ``use_kernel`` selects the CUDA kernels for the full-sequence
+    attention and SSD.
+    """
+    x = _embed_in(params, batch, cfg)
+    B, L = x.shape[:2]
+    positions = torch.arange(L, dtype=torch.float32, device=x.device)
+    caches = init_caches(cfg, B, max_len, x.device)
+    for i in range(cfg.num_layers):
+        x = _prefill_layer(layer_slice(params["layers"], i),
+                           _layer_cache(caches, i), x, cfg=cfg,
+                           positions=positions, use_kernel=use_kernel)
+    if caches.attn is not None:
+        caches.attn.pos.fill_(L)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_logits(params, h[:, -1:], cfg), caches
+
+
+def _prefill_layer(p, cache: LayerCaches, x, *, cfg, positions, use_kernel):
+    """One layer over the sequence; writes its caches into ``cache`` (views
+    of the zeroed stacked caches)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.mixer in ("attn", "hybrid"):
+        a = attn_mod.attention_forward(p["attn"], h, cfg, positions,
+                                       use_kernel=use_kernel)
+        _fill_kv(p["attn"], h, cfg, positions, cache.attn)
+    if cfg.mixer in ("ssm", "hybrid"):
+        s = _ssm_prefill(p["ssm"], h, cfg, cache.ssm, use_kernel)
+    if cfg.mixer == "attn":
+        mix = a
+    elif cfg.mixer == "ssm":
+        mix = s
+    else:
+        mix = _mix(p, a, s, cfg)
+    return _ffn(p, x + mix, cfg)
+
+
+def _fill_kv(p, h, cfg, positions, cache: attn_mod.KVCache) -> None:
+    """Write the sequence's keys and values into the (zeroed) cache.
+
+    When L >= W only the last W positions are kept, in slots 0..W-1, as
+    in the reference; decode then writes position ``pos`` to slot
+    ``pos % W``, so for L % W != 0 the first decode step overwrites a key
+    that is not the oldest.  The port reproduces that quirk of the
+    reference (ROADMAP.md, queue 3).
+    """
+    L = h.shape[1]
+    k = attn_mod._proj_heads(h, p["wk"])
+    v = attn_mod._proj_heads(h, p["wv"])
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
+    k = apply_rope(k, cos[:, None], sin[:, None]).transpose(1, 2)
+    v = v.transpose(1, 2)
+    n = min(L, cache.k.shape[2])
+    cache.k[:, :, :n] = k[:, :, L - n:]
+    cache.v[:, :, :n] = v[:, :, L - n:]
+
+
+def _ssm_prefill(p, h, cfg, cache: ssm_mod.SSMCache, use_kernel):
+    """Run the SSM over the sequence, then write the conv tail and the
+    terminal SSD state into ``cache``."""
+    out = ssm_mod.ssm_forward(p, h, cfg, use_kernel=use_kernel)
+    tail, state = _ssm_state_from_sequence(p, h, cfg)
+    cache.conv.copy_(tail)
+    cache.state.copy_(state)
+    return out
+
+
+def _ssm_state_from_sequence(p, h, cfg):
+    B, L, _ = h.shape
+    _, xs, Bm, Cm, dt = ssm_mod.preconv_streams(p, h, cfg)
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)
+    K = cfg.ssm_conv
+    tail = (xbc[:, L - (K - 1):] if L >= K - 1
+            else F.pad(xbc, (0, 0, K - 1 - L, 0)))
+    w_cat, b_cat = ssm_mod.conv_cat_weights(p, cfg)
+    xbc_c = F.silu(ssm_mod._causal_conv(xbc, w_cat, b_cat))
+    din = cfg.ssm_inner
+    gs = cfg.ssm_groups * cfg.ssm_state
+    xs, Bm, Cm = torch.split(xbc_c, [din, gs, gs], dim=-1)
+    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+    G, S = cfg.ssm_groups, cfg.ssm_state
+    xh = xs.reshape(B, L, H, Pd).float()
+    Bg = Bm.reshape(B, L, G, S).float()
+    dth = F.softplus(dt + p["dt_bias"][None, None]).float()
+    A = -torch.exp(p["A_log"].float())
+    l = dth * A[None, None]
+    # terminal state = sum_s exp(cumsum_rev) dt x B  (one associative pass)
+    cum = torch.cumsum(l, dim=1)
+    wfin = torch.exp(cum[:, -1:] - cum)                       # (B, L, H)
+    w = (wfin * dth)[..., None] * xh                          # (B, L, H, P)
+    rep = H // G
+    wg = w.reshape(B, L, G, rep, Pd)
+    state = torch.einsum("blgrp,blgs->bgrps", wg, Bg)
+    return tail, state.reshape(B, H, Pd, S)
+
+
+@torch.no_grad()
+def decode_step(params, tokens, caches: LayerCaches, cfg: ModelConfig):
+    """One decode step.  tokens: (B,) int -> logits (B, V), caches.
+
+    The caches are updated in place (the reference returns new arrays):
+    the returned ``LayerCaches`` shares the input's buffers, except the
+    attention ``pos``, which is a new tensor one larger.
+    """
+    x = F.embedding(tokens[:, None], params["embed"])
+    new_pos = []
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], i)
+        cache = _layer_cache(caches, i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.mixer in ("attn", "hybrid"):
+            a, new_attn = attn_mod.attention_decode(lp["attn"], h, cfg,
+                                                    cache.attn)
+            new_pos.append(new_attn.pos)
+        if cfg.mixer in ("ssm", "hybrid"):
+            s, new_ssm = ssm_mod.ssm_decode(lp["ssm"], h, cfg, cache.ssm)
+            cache.ssm.conv.copy_(new_ssm.conv)
+            cache.ssm.state.copy_(new_ssm.state)
+        if cfg.mixer == "attn":
+            mix = a
+        elif cfg.mixer == "ssm":
+            mix = s
+        else:
+            mix = _mix(lp, a, s, cfg)
+        x = _ffn(lp, x + mix, cfg)
+    attn = caches.attn
+    if attn is not None:
+        attn = attn_mod.KVCache(attn.k, attn.v, torch.stack(new_pos))
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_logits(params, h, cfg)[:, 0], LayerCaches(attn, caches.ssm)
