@@ -5,17 +5,24 @@
 
 Phases, each of which fails the run on any miss:
 
-1. build      -- compile the three CUDA kernels from the sources in this
-                 checkout (one ``nvcc`` per source, all at once, for
-                 ``sm_90a`` into ``build/``), with ptxas's register and
-                 spill counts per instantiation;
+1. build      -- compile the five CUDA kernel libraries from the sources
+                 in this checkout (one ``nvcc`` per source, all at once,
+                 for ``sm_90a`` into ``build/``): ``lqt_combine``, and two
+                 variants each of ``flash_attention`` and ``ssd_chunked``
+                 (``mma``: bf16 tensor cores; ``simt``: float32 CUDA
+                 cores), with ptxas's register and spill counts per
+                 instantiation and the HMMA/HGMMA count of each ``mma``
+                 library's SASS (``cuobjdump``);
 2. kernels    -- each kernel against its plain PyTorch version on the
                  card: ``lqt_combine`` on random element pairs with PSD
                  C/J, nx in {2, 4, 8}, lane counts {1, 7, 4097, 2**20},
                  float32 and float64, then ``kernel_suffix_scan`` against
                  the plain suffix scan; ``flash_attention`` and
                  ``ssd_chunked`` in float32 and bfloat16 on the reference's
-                 small test cases and at hymba-1.5b's prefill shapes;
+                 small test cases and at hymba-1.5b's prefill shapes, plus
+                 bfloat16 cases for the tensor-core tiling, each case
+                 naming the variant it ran; the SSD ``mma`` kernel's
+                 stage-2 chunk states against the staged plain version;
 3. estimation -- ``Estimator(method="parallel_kernel").solve`` on the
                  Wiener velocity model (paper section 5.1) at T = 2048
                  blocks x nsub = 10 (N = 20480) in float64, for one record
@@ -28,15 +35,17 @@ Phases, each of which fails the run on any miss:
                  bfloat16 (random weights from a seeded generator): 16
                  requests of 2048 prompt tokens and 32 new tokens in two
                  waves of 8, with the launch counts of both LM kernels
-                 (32 each per wave), prefill ms per wave, decode ms per
+                 (32 each per wave, all of the ``mma`` variant), prefill
+                 ms per wave, decode ms per
                  step and tokens/s from CUDA events, and one profiled
                  prefill and decode step;
 5. cross-path -- the same weights in float32, one wave of 8 x 2048
                  tokens: prefill logits of the kernel path against the
                  plain path, and their first generated tokens;
 6. LM kernels -- each LM kernel's time at the serving path's shapes,
-                 beside its plain version, the PyTorch library call where
-                 there is one, and its bound;
+                 beside the simt design at the same shape (timed in turns),
+                 its plain version, the PyTorch library call where there
+                 is one, its bound, and each SSD stage's time;
 7. report     -- one JSON line of per-kernel numbers, the card's name and
                  power limit, and the final status line.
 
@@ -48,6 +57,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -93,6 +103,8 @@ SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.04}
 # kernel path vs plain path on the whole model, float32: the two differ
 # by float32 sums in another order through 32 layers.
 CROSS_RTOL = 1e-3
+# name fragments of the port's kernels in a profiler trace
+PORT_KERNELS = ("flash_attn", "ssd_", "lqt_combine")
 
 
 def log(msg: str) -> None:
@@ -184,6 +196,12 @@ def device_time_ms(fn, reps: int) -> float:
     return total / 1e3 / reps
 
 
+def kernel_name(key: str) -> str:
+    """A port kernel's name (with template arguments) in a trace key."""
+    m = re.search(r"\w*(?:%s)\w*(?:<[^>]*>)?" % "|".join(PORT_KERNELS), key)
+    return m.group(0) if m else key[:60]
+
+
 def profile_summary(label: str, fn, wall_ms: float) -> None:
     """One profiled call: device kernels, busy time against ``wall_ms``
     (the call's CUDA-event time without the profiler), top kernels."""
@@ -203,6 +221,13 @@ def profile_summary(label: str, fn, wall_ms: float) -> None:
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
+    ours = [e for e in kern if any(n in e.key for n in PORT_KERNELS)]
+    if ours:
+        t = sum(e.self_device_time_total for e in ours) / 1e3
+        log(f"    the port's kernels: {t:.3f} ms ({t / busy:.3f} of busy): "
+            + ", ".join(f"{kernel_name(e.key)} x{e.count} "
+                        f"{e.self_device_time_total / 1e3:.3f} ms"
+                        for e in ours))
 
 
 def scan_lane_counts(n: int, records: int) -> list:
@@ -231,11 +256,35 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # 1. build
 # ---------------------------------------------------------------------------
 
-def build_all(modules: dict) -> None:
-    """One ``nvcc`` per source, all started together."""
+def cuobjdump() -> str | None:
+    """The toolkit's ``cuobjdump``, or None."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/nonexistent") / "bin" / "cuobjdump"
+    return str(tool) if tool.exists() else shutil.which("cuobjdump")
+
+
+def tensor_core_counts(library: str) -> dict | None:
+    """``HMMA``/``HGMMA`` instructions in a library's SASS, or None without
+    ``cuobjdump``."""
+    tool = cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HMMA", "HGMMA")}
+
+
+def build_all(jobs: dict) -> None:
+    """One ``nvcc`` per source, all started together.  ``jobs`` maps a
+    label to a function that builds one library; labels ending in ``mma``
+    are the tensor-core kernels, whose SASS must hold HMMA or HGMMA."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(modules)) as ex:
-        futures = {name: ex.submit(m.build) for name, m in modules.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        futures = {name: ex.submit(fn) for name, fn in jobs.items()}
         infos = {name: f.result() for name, f in futures.items()}
     log(f"built {len(infos)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s wall")
@@ -251,6 +300,17 @@ def build_all(modules: dict) -> None:
             log(f"  ptxas {name} {inst}: {row.get('registers')} registers, "
                 f"{row.get('spill_stores')} B spill stores, "
                 f"{row.get('spill_loads')} B spill loads")
+        if name.endswith("mma"):
+            counts = tensor_core_counts(info["library"])
+            if counts is None:
+                log(f"  {name}: no cuobjdump in this toolkit; the source "
+                    f"issues mma.sync.m16n8k16 (ptxas compiled it above)")
+            else:
+                log(f"  {name} SASS: {counts['HMMA']} HMMA, "
+                    f"{counts['HGMMA']} HGMMA instructions")
+                if counts["HMMA"] + counts["HGMMA"] == 0:
+                    raise AssertionError(f"{name}: no tensor-core "
+                                         f"instruction in the SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +359,10 @@ def check_lqt(g, lqt_kernel, lqt_ref) -> None:
 
 
 # (B, Hq, Hkv, Lq, Lk, D, causal, window): the reference's five test cases,
-# two ragged-edge cases, and hymba-1.5b's prefill.
+# two ragged-edge cases, and hymba-1.5b's prefill, in both dtypes; then
+# bfloat16 cases for the tensor-core kernel's tiling: D in {16, 32, 128},
+# Lq < Lk (decode alignment), Lq and Lk off the 64-row tiles, windows off
+# the tiles, and no causal mask.
 FA_CASES = [
     (2, 4, 2, 64, 64, 16, True, None),
     (1, 6, 2, 32, 32, 32, True, 24),
@@ -310,8 +373,20 @@ FA_CASES = [
     (1, 4, 2, 200, 200, 64, True, 70),
     (8, 25, 5, 2048, 2048, 64, True, 1024),
 ]
+FA_MMA_CASES = [
+    (2, 4, 2, 128, 128, 16, True, None),
+    (1, 6, 2, 96, 160, 32, True, 40),
+    (2, 8, 2, 100, 300, 128, True, 70),
+    (1, 4, 1, 1, 300, 64, True, None),
+    (3, 4, 2, 7, 1000, 64, True, 130),
+    (1, 25, 5, 200, 200, 64, True, 100),
+    (1, 4, 2, 80, 130, 32, False, None),
+    (1, 4, 2, 64, 200, 128, False, 50),
+]
 # (BH, L, P, S, chunk): the reference's four test shapes (heads folded in),
-# two more, and hymba-1.5b's prefill (8 x 50 heads).
+# two more, and hymba-1.5b's prefill (8 x 50 heads), in both dtypes; then
+# bfloat16 cases for the chunk-parallel kernel's tiling: S in {8, 64, 128},
+# P in {16, 128}, chunks of 64, 100 and 256.
 SSD_CASES = [
     (8, 64, 16, 8, 16),
     (6, 48, 32, 16, 16),
@@ -321,6 +396,18 @@ SSD_CASES = [
     (3, 300, 64, 16, 100),
     (400, 2048, 64, 16, 256),
 ]
+SSD_MMA_CASES = [
+    (4, 512, 16, 8, 256),
+    (3, 300, 128, 64, 100),
+    (2, 256, 128, 128, 64),
+    (5, 200, 16, 128, 100),
+    (6, 768, 128, 8, 256),
+    (3, 512, 16, 64, 64),
+]
+# stage-2 chunk states of the tensor-core SSD kernel against the staged
+# plain version, max abs error over max |state|: float32 scans of states
+# whose increments carry the 2^-16 hi/lo split of exp(total - cum) dtx.
+SSD_STATE_TOL = 1e-4
 
 
 def fa_inputs(case, dtype, g):
@@ -337,31 +424,52 @@ def ssd_inputs(case, dtype, g):
         for s in ((BH, L, P), (BH, L, S), (BH, L, S)))
 
 
+def launched(kernel, call) -> tuple:
+    """``(result, variant)``: ``call()``'s result and the one variant whose
+    launch count it moved (it must move exactly one, by one)."""
+    before = {v: kernel.launch_count(v) for v in kernel.VARIANTS}
+    out = call()
+    moved = [v for v in kernel.VARIANTS
+             if kernel.launch_count(v) != before[v]]
+    if len(moved) != 1 or kernel.launch_count(moved[0]) != (
+            before[moved[0]] + 1):
+        after = {v: kernel.launch_count(v) for v in before}
+        raise AssertionError(f"{kernel.__name__}: one call moved the "
+                             f"launch counts {before} -> {after}")
+    return out, moved[0]
+
+
 def check_fa(g, fa_kernel, fa_ref) -> float:
     """Returns the max abs error at hymba's prefill shape in bfloat16."""
     err_main = None
-    for dtype in (torch.float32, torch.bfloat16):
-        for case in FA_CASES:
-            causal, window = case[6], case[7]
-            q, k, v = fa_inputs(case, dtype, g)
-            got = fa_kernel.flash_attention(q, k, v, causal=causal,
-                                            window=window)
-            want = fa_ref.mha_ref(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            tol = FA_TOL[dtype]
-            err = float((got.float() - want.float()).abs().max())
-            rel = err / max(float(want.float().abs().max()), 1e-30)
-            ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
-                                     atol=tol))
-            log(f"  flash_attention {str(dtype)[6:]} {case}: max abs err "
-                f"{err:.3e}, rel {rel:.3e} (allclose rtol=atol={tol:.0e}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"flash_attention kernel disagrees with "
-                                     f"its plain version: {dtype} {case}")
-            if case == FA_CASES[-1] and dtype == torch.bfloat16:
-                err_main = err
-            del q, k, v, got, want
+    cases = ([(dtype, c) for dtype in (torch.float32, torch.bfloat16)
+              for c in FA_CASES]
+             + [(torch.bfloat16, c) for c in FA_MMA_CASES])
+    for dtype, case in cases:
+        causal, window = case[6], case[7]
+        q, k, v = fa_inputs(case, dtype, g)
+        got, which = launched(fa_kernel, lambda: fa_kernel.flash_attention(
+            q, k, v, causal=causal, window=window))
+        if which != fa_kernel.variant(dtype, case[5]):
+            raise AssertionError(f"flash_attention {dtype} {case} ran "
+                                 f"{which}, the rule names "
+                                 f"{fa_kernel.variant(dtype, case[5])}")
+        want = fa_ref.mha_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = FA_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / max(float(want.float().abs().max()), 1e-30)
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol))
+        log(f"  flash_attention {which} {str(dtype)[6:]} {case}: max abs err "
+            f"{err:.3e}, rel {rel:.3e} (allclose rtol=atol={tol:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention kernel disagrees with "
+                                 f"its plain version: {dtype} {case}")
+        if case == FA_CASES[-1] and dtype == torch.bfloat16:
+            err_main = err
+        del q, k, v, got, want
     torch.cuda.empty_cache()
     return err_main
 
@@ -369,27 +477,46 @@ def check_fa(g, fa_kernel, fa_ref) -> float:
 def check_ssd(g, ssd_kernel, ssd_ref) -> float:
     """Returns the max abs error at hymba's prefill shape in bfloat16."""
     err_main = None
-    for dtype in (torch.float32, torch.bfloat16):
-        for case in SSD_CASES:
-            chunk = case[-1]
-            ins = ssd_inputs(case, dtype, g)
-            got = ssd_kernel.ssd_chunked(*ins, chunk=chunk)
-            want = ssd_ref.ssd_chunked_ref(*ins, chunk=chunk)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            scale = max(float(want.float().abs().max()), 1e-30)
-            ok = err <= SSD_TOL[dtype] * scale
-            rule = f"abs <= {SSD_TOL[dtype]:.0e} max|want|"
-            log(f"  ssd_chunked {str(dtype)[6:]} {case}: max abs err "
-                f"{err:.3e}, rel {err / scale:.3e} ({rule}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"ssd kernel disagrees with its plain "
-                                     f"version: {dtype} {case}")
-            if case == SSD_CASES[-1] and dtype == torch.bfloat16:
-                err_main = err
-            del ins, got, want
-    torch.cuda.empty_cache()
+    cases = ([(dtype, c) for dtype in (torch.float32, torch.bfloat16)
+              for c in SSD_CASES]
+             + [(torch.bfloat16, c) for c in SSD_MMA_CASES])
+    for dtype, case in cases:
+        chunk = case[-1]
+        ins = ssd_inputs(case, dtype, g)
+        got, which = launched(ssd_kernel, lambda: ssd_kernel.ssd_chunked(
+            *ins, chunk=chunk))
+        if which != ssd_kernel.variant(dtype, case[2]):
+            raise AssertionError(f"ssd_chunked {dtype} {case} ran {which}, "
+                                 f"the rule names "
+                                 f"{ssd_kernel.variant(dtype, case[2])}")
+        want = ssd_ref.ssd_chunked_ref(*ins, chunk=chunk)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = max(float(want.float().abs().max()), 1e-30)
+        ok = err <= SSD_TOL[dtype] * scale
+        rule = f"abs <= {SSD_TOL[dtype]:.0e} max|want|"
+        states = ""
+        if which == "mma":
+            # the entering chunk states of stage 2, against the staged plain
+            # version: a fault shows at its stage
+            _, st, _ = ssd_kernel._run_mma(*ins, chunk)
+            _, want_st = ssd_ref.ssd_staged_ref(*ins, chunk=chunk)
+            st_err = float((st - want_st).abs().max()) / max(
+                float(want_st.abs().max()), 1e-30)
+            ok = ok and st_err <= SSD_STATE_TOL
+            states = (f"; stage-2 states rel err {st_err:.3e} (tol "
+                      f"{SSD_STATE_TOL:.0e})")
+            del st, want_st
+        log(f"  ssd_chunked {which} {str(dtype)[6:]} {case}: max abs err "
+            f"{err:.3e}, rel {err / scale:.3e} ({rule}){states} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ssd kernel disagrees with its plain "
+                                 f"version: {dtype} {case}")
+        if case == SSD_CASES[-1] and dtype == torch.bfloat16:
+            err_main = err
+        del ins, got, want
+        torch.cuda.empty_cache()
     return err_main
 
 
@@ -575,12 +702,21 @@ def serving_path(cfg, params, fa_kernel, ssd_kernel) -> dict:
     first_s = time.perf_counter() - t0
     launches = {"flash_attention": fa_kernel.launch_count(),
                 "ssd_chunked": ssd_kernel.launch_count()}
-    log(f"main path launches ({waves} waves): {launches}; first generate "
-        f"(kernels already built) {first_s:.2f} s")
+    by_variant = {f"{name} {v}": kernel.launch_count(v)
+                  for name, kernel in (("flash_attention", fa_kernel),
+                                       ("ssd_chunked", ssd_kernel))
+                  for v in kernel.VARIANTS}
+    log(f"main path launches ({waves} waves): {launches}, by variant "
+        f"{by_variant}; first generate (kernels already built) "
+        f"{first_s:.2f} s")
     for name, n in launches.items():
         if n != cfg.num_layers * waves:
             raise AssertionError(f"{name}: {n} launches, expected "
                                  f"{cfg.num_layers} per wave x {waves}")
+        # bf16 at hymba's widths: every launch is the tensor-core variant
+        if by_variant[f"{name} mma"] != n:
+            raise AssertionError(f"{name}: {by_variant} launches, expected "
+                                 f"all {n} of the mma variant")
     for r in done:
         if r.out.shape != (LM_NEW,) or not (
                 (r.out >= 0) & (r.out < cfg.vocab_size)).all():
@@ -678,9 +814,26 @@ def cross_path(cfg, params) -> None:
         raise AssertionError("kernel path disagrees with the plain path")
 
 
+def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
+    """``{name: (ms, profiler ms)}`` per call of each function, timed in
+    turns (a, b, ..., then again) so that the card's state is shared: CUDA
+    events around back-to-back calls (the kernels here run longer than
+    their host launch), and beside it the profiler's summed kernel time."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append((cuda_time_ms(fn, reps[name]),
+                                device_time_ms(fn, reps[name])))
+    return {name: tuple(statistics.mean(x) for x in zip(*t))
+            for name, t in times.items()}
+
+
 def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
                      g, errs) -> list:
-    """Report rows of the two LM kernels at the serving path's shapes."""
+    """Report rows of the two LM kernels at the serving path's shapes: the
+    tensor-core kernel the path runs, the simt design at the same shape
+    (called by variant: the path never takes it), the plain version, the
+    library call where there is one, and the bound."""
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
@@ -690,8 +843,14 @@ def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
             cfg.hd, True, cfg.window)
     q, k, v = fa_inputs(case, bf16, g)
     B, Hq, Hkv, L, _, D, _, W = case
-    ms = cuda_time_ms(lambda: fa_kernel.flash_attention(
-        q, k, v, causal=True, window=W), 10)
+    which = fa_kernel.variant(bf16, D)
+    t = in_turns({
+        which: lambda: fa_kernel.flash_attention(q, k, v, causal=True,
+                                                 window=W),
+        "simt": lambda: fa_kernel._run("simt", q, k, v, causal=True,
+                                       window=W)},
+        {which: 20, "simt": 5})
+    (ms, prof), (prev, prev_prof) = t[which], t["simt"]
     plain = cuda_time_ms(lambda: fa_ref.mha_ref(q, k, v, causal=True,
                                                 window=W), 3)
     rows_ = torch.arange(L, device="cuda")[:, None]
@@ -704,19 +863,23 @@ def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
     nbytes = 2 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D)
     b_ms, b_by = bound(nbytes, flops, bf16)
     n = launches["flash_attention"]
-    log(f"  flash_attention {case} bf16, per launch: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, scaled_dot_product_attention with the band "
-        f"mask (enable_gqa=True) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+    log(f"  flash_attention {case} bf16, per launch (CUDA events): kernel "
+        f"({which}) {ms:.4f} ms (profiler {prof:.4f} ms), the simt design "
+        f"{prev:.4f} ms (profiler {prev_prof:.4f} ms), plain "
+        f"{plain:.4f} ms, scaled_dot_product_attention with the band mask "
+        f"(enable_gqa=True) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
         f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-        f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+        f"{flops / ms / 1e9:.2f} TFLOP/s achieved ({b_ms / ms:.3f} of the "
+        f"bound; simt {flops / prev / 1e9:.2f} TFLOP/s)")
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_mma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
         "launches": n, "max_abs_err": errs["flash_attention"],
         "ms": ms * n, "plain_ms": plain * n, "bound_ms": b_ms * n,
-        "bound_by": b_by, "library_ms": lib_ms * n})
+        "bound_by": b_by, "library_ms": lib_ms * n, "variant": which,
+        "prev_design_ms": prev * n, "profiler_ms": prof * n})
     del q, k, v, band
     torch.cuda.empty_cache()
 
@@ -725,7 +888,12 @@ def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
             cfg.ssm_state, cfg.ssm_chunk)
     ins = ssd_inputs(case, bf16, g)
     BH, L, P, S, Q = case
-    ms = cuda_time_ms(lambda: ssd_kernel.ssd_chunked(*ins, chunk=Q), 10)
+    which = ssd_kernel.variant(bf16, P)
+    t = in_turns({
+        which: lambda: ssd_kernel.ssd_chunked(*ins, chunk=Q),
+        "simt": lambda: ssd_kernel._run_simt(*ins, Q)},
+        {which: 20, "simt": 5})
+    (ms, prof), (prev, prev_prof) = t[which], t["simt"]
     plain = cuda_time_ms(lambda: ssd_ref.ssd_chunked_ref(*ins, chunk=Q), 3)
     tri = Q * (Q + 1) // 2
     flops = BH * (L // Q) * (2 * Q * P * S          # C . state
@@ -735,17 +903,42 @@ def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
     nbytes = BH * L * (4 + 2 * (2 * P + 2 * S))
     b_ms, b_by = bound(nbytes, flops, bf16)
     n = launches["ssd_chunked"]
-    log(f"  ssd_chunked {case} bf16, per launch: kernel {ms:.4f} ms, plain "
+    # each stage alone; bytes each stage moves (inputs once, outputs once)
+    _, _, _, args = ssd_kernel._mma_stages(*ins, Q)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {st: (lambda st=st: ssd_kernel._launch_stage(st, args[st],
+                                                         stream))
+             for st in ssd_kernel.STAGES}
+    nc, st_bytes = L // Q, BH * (L // Q) * (P * S + 1) * 4
+    stage_bytes = {"chunk_state": BH * L * (4 + 2 * (P + S)) + st_bytes,
+                   "state_pass": BH * nc * (2 * P * S + 1) * 4,
+                   "chunk_scan": BH * L * (4 + 2 * (2 * P + 2 * S))
+                   + st_bytes - BH * nc * 4}
+    stage_ms = {}
+    for stage in ssd_kernel.STAGES:
+        for prior in ssd_kernel.STAGES[:ssd_kernel.STAGES.index(stage)]:
+            calls[prior]()                # the stage's inputs, fresh
+        stage_ms[stage] = cuda_time_ms(calls[stage], 50)
+    log(f"  ssd_chunked {case} bf16, per call (CUDA events): kernel "
+        f"({which}, three launches) {ms:.4f} ms (profiler {prof:.4f} ms), "
+        f"the simt design {prev:.4f} ms (profiler {prev_prof:.4f} ms), plain "
         f"{plain:.4f} ms, no library call, bound {b_ms:.4f} ms ({b_by}: "
         f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-        f"{nbytes / ms / 1e9:.3f} TB/s achieved")
+        f"{nbytes / ms / 1e9:.3f} TB/s achieved ({b_ms / ms:.3f} of the "
+        f"bound; simt {nbytes / prev / 1e9:.3f} TB/s)")
+    for stage, sms in stage_ms.items():
+        log(f"    stage {stage} (CUDA events): {sms:.4f} ms, "
+            f"{stage_bytes[stage] / 1e6:.1f} MB moved, "
+            f"{stage_bytes[stage] / sms / 1e9:.3f} TB/s")
     rows.append({
         "name": "ssd_chunked", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_mma.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:73",
         "launches": n, "max_abs_err": errs["ssd_chunked"],
         "ms": ms * n, "plain_ms": plain * n, "bound_ms": b_ms * n,
-        "bound_by": b_by, "library_ms": None})
+        "bound_by": b_by, "library_ms": None, "variant": which,
+        "prev_design_ms": prev * n, "profiler_ms": prof * n,
+        "stage_ms": {k: v * n for k, v in stage_ms.items()}})
     return rows
 
 
@@ -771,8 +964,11 @@ def main() -> int:
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
 
     phase("build")
-    build_all({"lqt_combine": lqt_kernel, "flash_attention": fa_kernel,
-               "ssd_chunked": ssd_kernel})
+    build_all({"lqt_combine": lqt_kernel.build,
+               **{f"flash_attention {v}": (lambda v=v: fa_kernel.build(v))
+                  for v in fa_kernel.VARIANTS},
+               **{f"ssd_chunked {v}": (lambda v=v: ssd_kernel.build(v))
+                  for v in ssd_kernel.VARIANTS}})
 
     phase("kernel vs plain version")
     g = torch.Generator(device="cuda").manual_seed(SEED)

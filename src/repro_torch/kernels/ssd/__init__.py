@@ -1,6 +1,8 @@
-from .kernel import build, launch_count, reset_launch_count, ssd_chunked
+from .kernel import (build, launch_count, reset_launch_count, ssd_chunked,
+                     variant)
 from .ops import ssd
-from .ref import ssd_chunked_ref, ssd_ref
+from .ref import bf16_split, ssd_chunked_ref, ssd_ref, ssd_staged_ref
 
-__all__ = ["build", "launch_count", "reset_launch_count", "ssd",
-           "ssd_chunked", "ssd_chunked_ref", "ssd_ref"]
+__all__ = ["bf16_split", "build", "launch_count", "reset_launch_count", "ssd",
+           "ssd_chunked", "ssd_chunked_ref", "ssd_ref", "ssd_staged_ref",
+           "variant"]

@@ -11,7 +11,11 @@ The SSD recurrence is the paper's affine trajectory recursion (eqs.
 * :func:`ssd_chunked_ref` -- the kernel's plain version: the arithmetic
   and casts of the reference's ``_ssd_kernel`` chunk by chunk, on the
   kernel's operands ``(l, dtx, B, C)``.  The CPU path of the kernel
-  wrapper, and what ``chip_smoke.py`` holds the CUDA kernel against.
+  wrapper, and what ``chip_smoke.py`` holds the CUDA kernels against.
+* :func:`ssd_staged_ref` -- the same function in the three stages of the
+  chunk-parallel kernel (``csrc/ssd_mma.cu``), with the entering chunk
+  states, and optionally the kernel's bf16 hi/lo split of its float32
+  operands (:func:`bf16_split`).
 """
 from __future__ import annotations
 
@@ -88,3 +92,64 @@ def ssd_chunked_ref(l, dtx, B, C, *, chunk: int):
         inc = torch.einsum("btp,bts->bps", w, Bc)
         state = torch.exp(total)[:, None, None] * state + inc
     return torch.cat(ys, dim=1)
+
+
+def bf16_split(x):
+    """``(hi, lo)`` in bfloat16 with ``hi + lo`` equal to float32 ``x`` to
+    2^-16 relative: ``hi = bf16(x)``, ``lo = bf16(x - hi)`` (the difference
+    is exact in float32).  The chunk-parallel kernel feeds its float32
+    operands to the bf16 tensor cores this way."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def ssd_staged_ref(l, dtx, B, C, *, chunk: int, split_bf16: bool = False):
+    """Chunked SSD scan in the three stages of the chunk-parallel kernel.
+
+    1. per chunk: ``total`` and ``inc = (exp(total - cum) * dtx)^T B``;
+    2. over chunks: ``state_c = exp(total_{c-1}) state_{c-1} + inc_{c-1}``,
+       ``state_0 = 0``;
+    3. per chunk: ``y = exp(cum) * (C state_c^T) + (M o C B^T) dtx``.
+
+    Arithmetic is float32 on the operands' values.  With ``split_bf16``
+    the three float32 operands of the kernel's products (``exp(total -
+    cum) * dtx``, ``state``, ``M o C B^T``) are split by :func:`bf16_split`
+    and the two products summed, as the kernel does.
+
+    Args as :func:`ssd_chunked_ref`.  Returns ``(y, states)``: y (BH, L, P)
+    in dtx's dtype and the float32 entering states (BH, L/chunk, P, S).
+    """
+    BH, L, P = dtx.shape
+    S = B.shape[-1]
+    nc = L // chunk
+    f32 = torch.float32
+
+    def mm(eq, a, b):          # a: the float32 operand the kernel splits
+        if not split_bf16:
+            return torch.einsum(eq, a, b)
+        hi, lo = bf16_split(a)
+        return torch.einsum(eq, hi.to(f32), b) + torch.einsum(eq, lo.to(f32),
+                                                              b)
+
+    cum = torch.cumsum(l.to(f32).reshape(BH, nc, chunk), dim=-1)
+    total = cum[..., -1]                                    # (BH, nc)
+    x, Bc, Cc = (a.to(f32).reshape(BH, nc, chunk, -1) for a in (dtx, B, C))
+    # 1. chunk elements
+    w = torch.exp(total[..., None] - cum)[..., None] * x
+    inc = mm("bctp,bcts->bcps", w, Bc)
+    # 2. exclusive scan over chunks
+    states = torch.empty((BH, nc, P, S), dtype=f32, device=dtx.device)
+    state = torch.zeros((BH, P, S), dtype=f32, device=dtx.device)
+    for c in range(nc):
+        states[:, c] = state
+        state = torch.exp(total[:, c])[:, None, None] * state + inc[:, c]
+    # 3. chunk outputs
+    y_inter = torch.exp(cum)[..., None] * mm("bcps,bcts->bctp", states, Cc)
+    ids = torch.arange(chunk, device=dtx.device)
+    M = torch.where(ids[:, None] >= ids[None, :],
+                    torch.exp(cum[..., :, None] - cum[..., None, :]),
+                    torch.zeros((), dtype=f32, device=dtx.device))
+    G = torch.einsum("bcts,bcks->bctk", Cc, Bc)
+    y_intra = mm("bctk,bckp->bctp", M * G, x)
+    y = (y_inter + y_intra).to(dtx.dtype).reshape(BH, L, P)
+    return y, states

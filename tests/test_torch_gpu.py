@@ -75,3 +75,95 @@ def test_serve_kernel_path_matches_plain_path_on_card(card):
         want = 2 * cfg.num_layers if use_kernel else 0     # two waves
         assert fa_kernel.launch_count() == ssd_kernel.launch_count() == want
     np.testing.assert_array_equal(outs[True], outs[False])
+
+
+# (B, Hq, Hkv, Lq, Lk, D, window): each head size of the tensor-core
+# kernel; decode alignment (Lq < Lk); Lq, Lk off the 64-row tiles; windows
+# off the tiles.
+FA_MMA_CASES = [
+    (2, 4, 2, 128, 128, 16, None),
+    (1, 6, 2, 96, 160, 32, 40),
+    (1, 4, 1, 1, 300, 64, None),
+    (2, 8, 2, 100, 300, 128, 70),
+    (1, 25, 5, 200, 200, 64, 100),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FA_MMA_CASES)
+def test_flash_attention_mma_matches_plain_on_card(card, case):
+    B, Hq, Hkv, Lq, Lk, D, window = case
+    q, k, v = (torch.randn(s, generator=card, device="cuda").bfloat16()
+               for s in ((B, Hq, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D)))
+    before = fa_kernel.launch_count("mma")
+    got = fa_kernel.flash_attention(q, k, v, causal=True, window=window)
+    assert fa_kernel.launch_count("mma") == before + 1
+    want = tfa.mha_ref(q, k, v, causal=True, window=window)
+    assert torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_dispatch_on_card(card):
+    """bf16 with D >= 16 runs the tensor-core kernel; float32 and D = 8 run
+    the float32 kernel; the per-variant counts add up to the total."""
+    fa_kernel.reset_launch_count()
+    for dtype, D, which in ((torch.bfloat16, 64, "mma"),
+                            (torch.bfloat16, 16, "mma"),
+                            (torch.bfloat16, 8, "simt"),
+                            (torch.float32, 64, "simt")):
+        assert fa_kernel.variant(dtype, D) == which
+        q, k, v = (torch.randn(s, generator=card, device="cuda").to(dtype)
+                   for s in ((1, 2, 64, D), (1, 1, 64, D), (1, 1, 64, D)))
+        before = fa_kernel.launch_count(which)
+        fa_kernel.flash_attention(q, k, v, causal=True)
+        assert fa_kernel.launch_count(which) == before + 1
+    assert fa_kernel.launch_count("mma") == 2
+    assert fa_kernel.launch_count("simt") == 2
+    assert fa_kernel.launch_count() == 4
+
+
+# (BH, L, P, S, chunk): S in {8, 64, 128}, P in {16, 128}, chunks of 64,
+# 100 (off the 16-row tiles) and 256.
+SSD_MMA_CASES = [
+    (4, 512, 16, 8, 256),
+    (3, 300, 128, 64, 100),
+    (2, 256, 128, 128, 64),
+    (5, 200, 16, 128, 100),
+    (8, 512, 64, 16, 256),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_MMA_CASES)
+def test_ssd_mma_matches_plain_on_card(card, case):
+    """The three-stage kernel against the plain version (y, at the
+    reference's bf16 rule) and against the staged plain version (the
+    entering chunk states of stage 2, float32 to 1e-4 of their
+    magnitude)."""
+    BH, L, P, S, chunk = case
+    l = -torch.rand(BH, L, generator=card, device="cuda") * 0.2
+    dtx, Bm, Cm = (torch.randn(s, generator=card, device="cuda").bfloat16()
+                   for s in ((BH, L, P), (BH, L, S), (BH, L, S)))
+    before = ssd_kernel.launch_count("mma")
+    got = ssd_kernel.ssd_chunked(l, dtx, Bm, Cm, chunk=chunk)
+    assert ssd_kernel.launch_count("mma") == before + 1
+    want = tssd.ssd_chunked_ref(l, dtx, Bm, Cm, chunk=chunk)
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 0.04 * scale
+    _, states, _ = ssd_kernel._run_mma(l, dtx, Bm, Cm, chunk)
+    _, want_states = tssd.ssd_staged_ref(l, dtx, Bm, Cm, chunk=chunk)
+    err = float((states - want_states).abs().max())
+    assert err <= 1e-4 * max(float(want_states.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_ssd_dispatch_on_card(card):
+    ssd_kernel.reset_launch_count()
+    for dtype, which in ((torch.bfloat16, "mma"), (torch.float32, "simt")):
+        assert ssd_kernel.variant(dtype, 64) == which
+        l = -torch.rand(2, 128, generator=card, device="cuda") * 0.2
+        dtx, Bm, Cm = (torch.randn(s, generator=card, device="cuda").to(dtype)
+                       for s in ((2, 128, 64), (2, 128, 16), (2, 128, 16)))
+        ssd_kernel.ssd_chunked(l, dtx, Bm, Cm, chunk=64)
+    assert ssd_kernel.launch_count("mma") == ssd_kernel.launch_count("simt") == 1
+    assert ssd_kernel.launch_count() == 2

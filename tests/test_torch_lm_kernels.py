@@ -197,6 +197,118 @@ def test_ssd_validation():
 
 
 # ---------------------------------------------------------------------------
+# the arithmetic of the tensor-core designs
+# ---------------------------------------------------------------------------
+
+# (BH, L, P, S, chunk, tail): the reference's four test shapes on the
+# kernel's operands (heads folded in; the third is L = 33 padded to 40 by
+# the op), and one with a dt = 0 padded tail of 7 steps.
+STAGED_SHAPES = [
+    (8, 64, 16, 8, 16, 0),
+    (6, 48, 32, 16, 16, 0),
+    (4, 40, 8, 4, 8, 7),
+    (2, 128, 64, 64, 64, 0),
+    (3, 48, 16, 8, 16, 7),
+]
+
+
+def _staged_inputs(shape):
+    """Kernel operands from a seeded numpy generator; the last ``tail``
+    steps are what ``ops.ssd``'s padding gives (l, dtx, B, C all 0)."""
+    BH, L, P, S, chunk, tail = shape
+    rng = np.random.default_rng(BH * L + P + S)
+    l = -rng.uniform(0.0, 0.3, (BH, L))
+    dtx, B, C = (rng.standard_normal(s) for s in
+                 ((BH, L, P), (BH, L, S), (BH, L, S)))
+    for a in (l, dtx, B, C):
+        a[:, L - tail:] = 0.0
+    return l, dtx, B, C
+
+
+@pytest.mark.parametrize("shape", STAGED_SHAPES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ssd_staged_ref_matches_chunked_and_pallas(shape, dtype):
+    """The three stages of the chunk-parallel kernel, in plain torch,
+    against the port's chunked plain version and the Pallas kernel in
+    interpret mode: float32 at 2e-5 (of max |want| against Pallas),
+    bfloat16 at 0.04 x max |want|."""
+    chunk = shape[4]
+    l, dtx, B, C = _staged_inputs(shape)
+    jl = jnp.asarray(l, jnp.float32)
+    jx, tx = zip(*(_pair(a, dtype) for a in (dtx, B, C)))
+    tl = torch.as_tensor(l, dtype=torch.float32)
+    got, states = tssd.ssd_staged_ref(tl, *tx, chunk=chunk)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    assert states.shape == (shape[0], shape[1] // chunk, shape[2], shape[3])
+    assert bool((states[:, 0] == 0).all())
+    chunked = tssd.ssd_chunked_ref(tl, *tx, chunk=chunk)
+    pallas = j_ssd_chunked(jl, *jx, chunk=chunk, interpret=True)
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(_np(got), _np(chunked), rtol=2e-5,
+                                   atol=2e-5)
+        # Against Pallas, normwise (the rule of chip_smoke.py's SSD check):
+        # an output sums up to chunk x S products of terms much larger
+        # than the smallest outputs, in another order.
+        want = _np(pallas)
+        np.testing.assert_allclose(_np(got), want, rtol=0,
+                                   atol=2e-5 * float(np.abs(want).max()))
+    else:
+        for want in (_np(chunked), _np(pallas)):
+            atol = 0.04 * float(np.abs(want).max())
+            np.testing.assert_allclose(_np(got), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("shape", STAGED_SHAPES)
+def test_ssd_bf16_split_keeps_float32_error(shape):
+    """On bf16 operand values, the kernel's hi/lo split of its three
+    float32 operands moves y and the chunk states by at most 1e-4 of their
+    magnitude (a bf16 rounding of those operands would move them by
+    ~4e-3).  Both runs return float32, so y's final bf16 rounding does not
+    hide the difference."""
+    chunk = shape[4]
+    l, dtx, B, C = _staged_inputs(shape)
+    tl = torch.as_tensor(l, dtype=torch.float32)
+    tx = [torch.as_tensor(a, dtype=torch.float32).bfloat16().float()
+          for a in (dtx, B, C)]
+    y0, s0 = tssd.ssd_staged_ref(tl, *tx, chunk=chunk)
+    y1, s1 = tssd.ssd_staged_ref(tl, *tx, chunk=chunk, split_bf16=True)
+    for got, want in ((y1, y0), (s1, s0)):
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 7.5e4, 1e30])
+def test_bf16_split_reproduces_float32(scale):
+    """hi + lo reproduces float32 x to 2^-16 relative; hi alone does not."""
+    rng = np.random.default_rng(int(np.log10(scale)) + 40)
+    x = torch.as_tensor(rng.standard_normal(4096) * scale,
+                        dtype=torch.float32)
+    hi, lo = tssd.bf16_split(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    rel = ((hi.double() + lo.double() - x.double()).abs()
+           / x.double().abs())
+    assert float(rel.max()) <= 2.0 ** -16
+    assert float(((hi.double() - x.double()).abs()
+                  / x.double().abs()).max()) > 2.0 ** -16
+
+
+def test_dispatch_rules():
+    """The wrappers' dispatch: a plain function of dtype and head size."""
+    for D in (16, 32, 64, 128):
+        assert fa_kernel.variant(torch.bfloat16, D) == "mma"
+        assert fa_kernel.variant(torch.float32, D) == "simt"
+    assert fa_kernel.variant(torch.bfloat16, 8) == "simt"
+    assert fa_kernel.variant(torch.float32, 8) == "simt"
+    for P in ssd_kernel.HEAD_DIMS:
+        assert ssd_kernel.variant(torch.bfloat16, P) == "mma"
+        assert ssd_kernel.variant(torch.float32, P) == "simt"
+    for mod in (fa_kernel, ssd_kernel):
+        assert set(mod.VARIANTS) == {"mma", "simt"}
+        assert mod.launch_count() == sum(mod.launch_count(v)
+                                         for v in mod.VARIANTS)
+
+
+# ---------------------------------------------------------------------------
 # builds (nothing is compiled here: there is no nvcc)
 # ---------------------------------------------------------------------------
 
@@ -221,3 +333,28 @@ def test_no_build_at_import_and_ptxas_parse():
     log = log.replace("17flash_attn_kernel", "16ssd_chunk_kernel")
     assert [(r["P"], r["dtype"]) for r in ssd_kernel._parse_ptxas(log)] == [
         (64, "bfloat16"), (8, "float32")]
+
+
+def test_ptxas_parse_of_the_mma_kernels():
+    for mod in (fa_kernel, ssd_kernel):
+        assert mod.SOURCE_MMA.is_file() and mod._lib_mma is None
+    entry = ("ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__8e6_"
+             "{}' for 'sm_90a'\n"
+             "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+             "loads\nptxas info    : Used {} registers, used 1 barriers\n")
+    log = (entry.format("21flash_attn_mma_kernelILi64EEEvPK13__nv_bfloat16S3_"
+                        "S3_PS1_iiiiiiif", 129)
+           + entry.format("21flash_attn_mma_kernelILi16EEEvPK13__nv_bfloat16"
+                          "S3_S3_PS1_iiiiiiif", 77))
+    assert [(r["D"], r["dtype"], r["registers"])
+            for r in fa_kernel._parse_ptxas(log)] == [
+        (16, "bfloat16", 77), (64, "bfloat16", 129)]
+    log = (entry.format("21ssd_chunk_scan_kernelILi64EEEvPKfPK13__nv_bfloat16"
+                        "S5_S5_S2_PS3_iiiiii", 86)
+           + entry.format("22ssd_chunk_state_kernelEPKfPK13__nv_bfloat16S4_"
+                          "PfS5_iiiii", 48)
+           + entry.format("21ssd_state_pass_kernelEPKfPfiii", 32))
+    assert [(r["stage"], r.get("PB"), r["registers"])
+            for r in ssd_kernel._parse_ptxas(log)] == [
+        ("chunk_scan", 64, 86), ("chunk_state", None, 48),
+        ("state_pass", None, 32)]
