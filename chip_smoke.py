@@ -15,7 +15,7 @@ Phases, each of which fails the run on any miss:
                  library's SASS (``cuobjdump``);
 2. kernels    -- each kernel against its plain PyTorch version on the
                  card: ``lqt_combine`` on random element pairs with PSD
-                 C/J, nx in {2, 4, 8}, lane counts {1, 7, 4097, 2**20},
+                 C/J, nx in {2, 4, 5, 8}, lane counts {1, 7, 4097, 2**20},
                  float32 and float64, then ``kernel_suffix_scan`` against
                  the plain suffix scan; ``flash_attention`` and
                  ``ssd_chunked`` in float32 and bfloat16 on the reference's
@@ -29,8 +29,24 @@ Phases, each of which fails the run on any miss:
                  and for 64 stacked records, held against the port's
                  ``parallel_rts`` on the card and its ``sequential_rts`` on
                  the CPU, with the launch counts of ``lqt_combine``, the
-                 median solve time, one profiled solve per cell, and the
-                 kernel's time at the path's launch shapes;
+                 median solve time and one profiled solve per cell;
+3b. nonlinear -- the paper's Fig.-2 experiment: the iterated Taylor
+                 smoother (5 passes) on the coordinated-turn model
+                 (section 5.2) at T = 512 blocks x nsub = 10 (N = 5120) in
+                 ``mode="euler"``, float64, one record and 64 stacked
+                 records from the port's ``simulate_nonlinear``:
+                 ``parallel_kernel`` (``lqt_combine`` at nx = 5) against
+                 ``parallel_rts`` and ``sequential_rts`` on the card, the
+                 two-filter smoother (``discrete``) against ``parallel_rts``
+                 (``discrete``), the cost traces, median solve times of the
+                 three methods, one profiled solve per cell, and the solve in
+                 float32 (its distance from float64 printed, not gated);
+3c. lqt_combine timing -- the kernel at both estimation paths' launch
+                 shapes: CUDA events around a CUDA-graph replay of
+                 back-to-back launches (device time), around the same
+                 launches called eagerly (host launch cost included), and
+                 the profiler's summed kernel time, beside the plain
+                 version and the bound;
 4. serving    -- ``ServeEngine.generate`` on hymba-1.5b at full width in
                  bfloat16 (random weights from a seeded generator): 16
                  requests of 2048 prompt tokens and 32 new tokens in two
@@ -79,6 +95,14 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
 
 N_BLOCKS, NSUB, RECORDS = 2048, 10, 64
 SEED = 0
+# coordinated-turn cell: the top of the reference's Fig.-2 harness
+# (benchmarks/fig2_nonlinear.py:19), 5 passes in euler mode
+NL_BLOCKS, NL_ITERS, NL_MODE = 512, 5, "euler"
+# nonlinear gates: kernel vs plain combine on the same arithmetic up to the
+# combine's pivoting; euler-mode parallel vs sequential and two-filter vs
+# RTS at the reference's own bounds (tests/test_nonlinear.py:
+# test_euler_mode_ieks, test_two_filter_ieks)
+NL_KERNEL_TOL, NL_SEQ_TOL, NL_TF_TOL = 1e-8, 5e-2, 1e-5
 # kernel vs plain version: normwise relative error bound per dtype.  The
 # unpivoted Gauss-Jordan and the pivoted solve differ by round-off times
 # the conditioning of M = I + C1 J2 (at most a few hundred for these
@@ -169,6 +193,29 @@ def cuda_time_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` back-to-back runs, by CUDA
+    events around one replay of a CUDA graph that holds the ``reps`` runs:
+    the launches follow each other without the host's per-call cost, so
+    this is the card's time even where one call's host work outlasts its
+    kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()                                            # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -324,7 +371,7 @@ def check_lqt(g, lqt_kernel, lqt_ref) -> None:
     from repro_torch.kernels.lqt_combine.ops import kernel_suffix_scan
 
     for dtype in (torch.float32, torch.float64):
-        for nx in (2, 4, 8):
+        for nx in (2, 4, 5, 8):
             for B in (1, 7, 4097, 2 ** 20):
                 ops1, ops2 = random_pairs(nx, B, dtype, g)
                 got = lqt_kernel.lqt_combine_lanes(ops1, ops2)
@@ -524,8 +571,24 @@ def check_ssd(g, ssd_kernel, ssd_ref) -> float:
 # 3. estimation path
 # ---------------------------------------------------------------------------
 
-def estimation_path(g, lqt_kernel, lqt_ref) -> dict:
-    """Returns the report row of ``lqt_combine``."""
+def median_solve_ms(est, problem, runs: int = 5) -> float:
+    """Median of ``runs`` solves by CUDA events, after one warm-up."""
+    est.solve(problem)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        est.solve(problem)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def estimation_path(lqt_kernel) -> dict:
+    """Returns the launch count and launch shapes of ``lqt_combine`` on the
+    path."""
     from repro_torch.configs.wiener_velocity import WienerVelocityConfig
     from repro_torch.core import (
         Estimator,
@@ -595,17 +658,7 @@ def estimation_path(g, lqt_kernel, lqt_ref) -> dict:
     for name, p in problems.items():
         for label, est in (("parallel_kernel", est_k),
                            ("parallel_rts", est_p)):
-            est.solve(p)                                      # warm-up
-            times = []
-            for _ in range(5):
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                est.solve(p)
-                stop.record()
-                torch.cuda.synchronize()
-                times.append(start.elapsed_time(stop))
-            solve_ms[(name, label)] = statistics.median(times)
+            solve_ms[(name, label)] = median_solve_ms(est, p)
             log(f"  solve {name} {label}: median {solve_ms[(name, label)]:.3f}"
                 f" ms over 5 runs (CUDA events, after one warm-up)")
 
@@ -614,66 +667,220 @@ def estimation_path(g, lqt_kernel, lqt_ref) -> dict:
         profile_summary(f"{name} parallel_kernel", lambda: est_k.solve(p),
                         solve_ms[(name, "parallel_kernel")])
 
-    phase("lqt_combine timing at the estimation path's shapes")
-    n_elems = N_BLOCKS + 1
-    shapes = (scan_lane_counts(n_elems, 1)
-              + scan_lane_counts(n_elems, RECORDS))
+    shapes = (scan_lane_counts(N_BLOCKS + 1, 1)
+              + scan_lane_counts(N_BLOCKS + 1, RECORDS))
     if len(shapes) != launches:
         raise AssertionError(f"expected {len(shapes)} launches on the "
                              f"main path, counted {launches}")
-    # Device time from the profiler (what the card spends in the kernels);
-    # wall time from CUDA events around back-to-back calls (what a caller
-    # waits, host launch overhead included).
-    k_dev = p_dev = k_wall = p_wall = bytes_ = flops = max_abs = 0.0
-    for B in sorted(set(shapes)):
-        mult = shapes.count(B)
-        ops1, ops2 = random_pairs(4, B, torch.float64, g)
-        got = lqt_kernel.lqt_combine_lanes(ops1, ops2)
-        want = lqt_ref.lqt_combine_lanes_ref(ops1, ops2)
-        max_abs = max(max_abs, compare(got, want)[0])
+    return {"launches": launches, "shapes": shapes, "nx": 4}
+
+
+# ---------------------------------------------------------------------------
+# 3b. nonlinear path: the iterated smoother on the coordinated turn
+# ---------------------------------------------------------------------------
+
+def nonlinear_path(lqt_kernel) -> dict:
+    """The paper's Fig.-2 cell through ``Estimator.solve``; returns the
+    launch count and launch shapes of ``lqt_combine`` on the path."""
+    from repro_torch.configs.coordinated_turn import CoordinatedTurnConfig
+    from repro_torch.core import (
+        Estimator,
+        IteratedOptions,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+        SequentialOptions,
+        TwoFilterOptions,
+        simulate_nonlinear,
+        time_grid,
+    )
+
+    cfg = CoordinatedTurnConfig()
+    N = NL_BLOCKS * cfg.nsub
+    model = cfg.model(dtype=torch.float64, device="cuda")
+    ts = time_grid(cfg.t0, cfg.tf, N, device="cuda")
+    gm = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    _, y1 = simulate_nonlinear(model, ts, gm)                    # (N, ny)
+    _, yb = simulate_nonlinear(model, ts[:, None].expand(-1, RECORDS), gm)
+    torch.cuda.synchronize()
+    log(f"coordinated turn, T={NL_BLOCKS} blocks x nsub={cfg.nsub} "
+        f"(N={N}), mode={NL_MODE}, {NL_ITERS} iterations, float64, records: "
+        f"single and {RECORDS} stacked; measurements simulated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    problems = {"single": Problem.single(model, ts, y1),
+                "stacked64": Problem.stacked(model, ts, yb.movedim(1, 0))}
+
+    def est(method, inner, m=model):
+        return Estimator(m, method=method, options=IteratedOptions(
+            inner=inner, iterations=NL_ITERS))
+
+    nsub = cfg.nsub
+    ests = {"parallel_kernel": est("parallel_kernel",
+                                   KernelOptions(nsub=nsub, mode=NL_MODE)),
+            "parallel_rts": est("parallel_rts",
+                                ParallelOptions(nsub=nsub, mode=NL_MODE)),
+            "sequential_rts": est("sequential_rts",
+                                  SequentialOptions(mode=NL_MODE))}
+    est_rd = est("parallel_rts", ParallelOptions(nsub=nsub, mode="discrete"))
+    est_tf = est("parallel_two_filter",
+                 TwoFilterOptions(nsub=nsub, mode="discrete"))
+
+    lqt_kernel.reset_launch_count()
+    sols = {k: ests["parallel_kernel"].solve(p) for k, p in problems.items()}
+    torch.cuda.synchronize()
+    launches = lqt_kernel.launch_count()
+    log(f"nonlinear path launches: lqt_combine {launches}")
+    shapes = NL_ITERS * (scan_lane_counts(NL_BLOCKS + 1, 1)
+                         + scan_lane_counts(NL_BLOCKS + 1, RECORDS))
+    if launches != len(shapes):
+        raise AssertionError(f"nonlinear path: {launches} lqt_combine "
+                             f"launches, expected {len(shapes)}")
+
+    def max_dx(a, b):
+        return float((a.x - b.x).abs().max())
+
+    for name, p in problems.items():
+        sol = sols[name]
+        lead = () if name == "single" else (RECORDS,)
+        for f, shape in (("x", lead + (N + 1, 5)), ("S", lead + (N + 1, 5, 5)),
+                         ("cost", lead), ("cost_trace", lead + (NL_ITERS,)),
+                         ("step_norms", lead + (NL_ITERS,))):
+            t = getattr(sol, f)
+            if (tuple(t.shape) != shape or t.device.type != "cuda"
+                    or not bool(torch.isfinite(t).all())):
+                raise AssertionError(f"{name}: {f} {tuple(t.shape)} on "
+                                     f"{t.device} not finite or misshapen")
+        trace = sol.cost_trace
+        if not (torch.equal(sol.cost, trace[..., -1])
+                and bool((trace[..., -1] < trace[..., 0]).all())):
+            raise AssertionError(f"{name}: cost trace {trace} does not end "
+                                 f"at cost below its start")
+        log(f"  {name}: cost trace (record 0) "
+            f"{[round(float(c), 3) for c in trace.reshape(-1, NL_ITERS)[0]]}"
+            f", step norms {[f'{float(c):.2e}' for c in sol.step_norms.reshape(-1, NL_ITERS)[0]]}")
+        gates = (
+            ("parallel_kernel vs parallel_rts (cuda)", max_dx(
+                sol, ests["parallel_rts"].solve(p)), NL_KERNEL_TOL),
+            (f"parallel_kernel vs sequential_rts (cuda, {NL_MODE})",
+             max_dx(sol, ests["sequential_rts"].solve(p)), NL_SEQ_TOL),
+            ("parallel_two_filter vs parallel_rts (cuda, discrete)",
+             max_dx(est_tf.solve(p), est_rd.solve(p)), NL_TF_TOL))
+        for label, dx, tol in gates:
+            ok = dx < tol
+            log(f"  {name}: {label}: max|dx| {dx:.3e} (tol {tol:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: {label} max|dx| {dx:.3e} >= "
+                                     f"{tol:.0e}")
+
+    solve_ms = {}
+    for name, p in problems.items():
+        for label, e in ests.items():
+            solve_ms[(name, label)] = median_solve_ms(e, p)
+            log(f"  solve {name} {label}: median "
+                f"{solve_ms[(name, label)]:.3f} ms over 5 runs (CUDA events, "
+                f"after one warm-up)")
+        log(f"  {name}: sequential_rts / parallel_kernel = "
+            f"{solve_ms[(name, 'sequential_rts')] / solve_ms[(name, 'parallel_kernel')]:.2f}")
+
+    phase("nonlinear profile")
+    for name, p in problems.items():
+        profile_summary(f"{name} parallel_kernel ({NL_ITERS} passes)",
+                        lambda: ests["parallel_kernel"].solve(p),
+                        solve_ms[(name, "parallel_kernel")])
+
+    phase("nonlinear path in float32")
+    model32 = cfg.model(dtype=torch.float32, device="cuda")
+    est32 = est("parallel_kernel", KernelOptions(nsub=nsub, mode=NL_MODE),
+                m=model32)
+    for name, p in problems.items():
+        p32 = (Problem.single(model32, ts, y1) if name == "single" else
+               Problem.stacked(model32, ts, yb.movedim(1, 0)))
+        sol32 = est32.solve(p32)
+        dx = float((sol32.x.double() - sols[name].x).abs().max())
+        log(f"  {name}: float32 parallel_kernel vs float64: max|dx| "
+            f"{dx:.3e}, finite {bool(torch.isfinite(sol32.x).all())} "
+            f"(reported, not gated); solve median "
+            f"{median_solve_ms(est32, p32):.3f} ms")
+    return {"launches": launches, "shapes": shapes, "nx": 5}
+
+
+# ---------------------------------------------------------------------------
+# 3c. lqt_combine at the estimation paths' launch shapes
+# ---------------------------------------------------------------------------
+
+def lqt_timing(g, lqt_kernel, lqt_ref, paths: dict) -> dict:
+    """The report row of ``lqt_combine``: its time summed over every path's
+    launches (CUDA events around a CUDA-graph replay of back-to-back
+    launches), beside the same launches called eagerly, the profiler's
+    summed kernel time, the plain version and the bound; per path too."""
+    row = {"name": "lqt_combine", "route": "cuda",
+           "source": "src/repro_torch/kernels/lqt_combine/csrc/"
+                     "lqt_combine.cu",
+           "replaces": "src/repro/kernels/lqt_combine/kernel.py:115",
+           "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "bound_by": None, "library_ms": None,
+           "eager_ms": 0.0, "profiler_ms": 0.0, "paths": {}}
+    for path, info in paths.items():
+        shapes, nx = info["shapes"], info["nx"]
+        t = dict.fromkeys(("ms", "eager_ms", "profiler_ms", "plain_ms",
+                           "bytes", "flops", "max_abs_err"), 0.0)
+        for B in sorted(set(shapes)):
+            mult = shapes.count(B)
+            ops1, ops2 = random_pairs(nx, B, torch.float64, g)
+            got = lqt_kernel.lqt_combine_lanes(ops1, ops2)
+            want = lqt_ref.lqt_combine_lanes_ref(ops1, ops2)
+            t["max_abs_err"] = max(t["max_abs_err"], compare(got, want)[0])
+
+            def kern():
+                return lqt_kernel.lqt_combine_lanes(ops1, ops2)
+
+            def plain():
+                return lqt_ref.lqt_combine_lanes_ref(ops1, ops2)
+
+            t["ms"] += mult * graph_time_ms(kern, 50)
+            t["eager_ms"] += mult * cuda_time_ms(kern, 50)
+            t["profiler_ms"] += mult * device_time_ms(kern, 20)
+            t["plain_ms"] += mult * cuda_time_ms(plain, 10)
+            t["bytes"] += mult * B * combine_bytes(nx, 8)
+            t["flops"] += mult * B * combine_flops(nx)
+            del ops1, ops2, got, want
+        b_ms, b_by = bound(t["bytes"], t["flops"], torch.float64)
+        log(f"  {path} path (nx={nx}, float64): {len(shapes)} launches, "
+            f"lanes per launch {sorted(set(shapes))}")
+        log(f"    summed over the path's launches: kernel {t['ms']:.4f} ms "
+            f"(CUDA events, graph replay; eager calls {t['eager_ms']:.4f} "
+            f"ms; profiler {t['profiler_ms']:.4f} ms), plain version "
+            f"{t['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}; "
+            f"{t['bytes']:.0f} B, {t['flops']:.0f} FLOP): "
+            f"{b_ms / t['ms']:.3f} of the bound")
+        row["paths"][path] = {
+            "launches": info["launches"], "ms": t["ms"],
+            "eager_ms": t["eager_ms"], "profiler_ms": t["profiler_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by}
+        row["launches"] += info["launches"]
+        row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+        for k in ("ms", "eager_ms", "profiler_ms", "plain_ms"):
+            row[k] += t[k]
+        row["bound_ms"] += b_ms
+        # the row's bound is bytes-bound if any path is
+        row["bound_by"] = ("bytes" if "bytes" in (row["bound_by"], b_by)
+                           else b_by)
+    for nx, B in ((5, 65536), (4, 65536), (4, 1024), (4, 1)):
+        ops1, ops2 = random_pairs(nx, B, torch.float64, g)
 
         def kern():
             return lqt_kernel.lqt_combine_lanes(ops1, ops2)
 
-        def plain():
-            return lqt_ref.lqt_combine_lanes_ref(ops1, ops2)
-
-        k_dev += mult * device_time_ms(kern, 20)
-        p_dev += mult * device_time_ms(plain, 5)
-        k_wall += mult * cuda_time_ms(kern, 50)
-        p_wall += mult * cuda_time_ms(plain, 10)
-        bytes_ += mult * B * combine_bytes(4, 8)
-        flops += mult * B * combine_flops(4)
-    bound_ms, bound_by = bound(bytes_, flops, torch.float64)
-    log(f"  {len(shapes)} launches, lanes per launch {sorted(shapes)}")
-    log(f"  summed over the launches of one single + one {RECORDS}-record "
-        f"solve: kernel device {k_dev:.4f} ms (wall {k_wall:.4f} ms), plain "
-        f"version device {p_dev:.4f} ms (wall {p_wall:.4f} ms), bound "
-        f"{bound_ms:.5f} ms ({bound_by}; {bytes_:.0f} B, {flops:.0f} FLOP)")
-    for B in (max(shapes), 1024, 1):
-        ops1, ops2 = random_pairs(4, B, torch.float64, g)
-        dev = device_time_ms(
-            lambda: lqt_kernel.lqt_combine_lanes(ops1, ops2), 50)
-        wall = cuda_time_ms(
-            lambda: lqt_kernel.lqt_combine_lanes(ops1, ops2), 100)
-        nbytes = B * combine_bytes(4, 8)
-        log(f"  one launch, B={B} lanes: device {dev:.5f} ms, wall "
-            f"{wall:.5f} ms per launch, bound "
+        ms = graph_time_ms(kern, 100)
+        nbytes = B * combine_bytes(nx, 8)
+        log(f"  one launch, nx={nx}, B={B} lanes: {ms:.5f} ms (graph "
+            f"replay; eager {cuda_time_ms(kern, 100):.5f} ms, profiler "
+            f"{device_time_ms(kern, 50):.5f} ms), bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
-            f"({nbytes / dev / 1e9:.3f} TB/s achieved)")
-    return {
-        "name": "lqt_combine",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/lqt_combine/csrc/lqt_combine.cu",
-        "replaces": "src/repro/kernels/lqt_combine/kernel.py:115",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": k_dev,
-        "plain_ms": p_dev,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }
+            f"({nbytes / ms / 1e9:.3f} TB/s achieved)")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -876,7 +1083,8 @@ def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_mma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
-        "launches": n, "max_abs_err": errs["flash_attention"],
+        "launches": n, "paths": {"serving": {"launches": n}},
+        "max_abs_err": errs["flash_attention"],
         "ms": ms * n, "plain_ms": plain * n, "bound_ms": b_ms * n,
         "bound_by": b_by, "library_ms": lib_ms * n, "variant": which,
         "prev_design_ms": prev * n, "profiler_ms": prof * n})
@@ -934,7 +1142,8 @@ def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
         "name": "ssd_chunked", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_mma.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:73",
-        "launches": n, "max_abs_err": errs["ssd_chunked"],
+        "launches": n, "paths": {"serving": {"launches": n}},
+        "max_abs_err": errs["ssd_chunked"],
         "ms": ms * n, "plain_ms": plain * n, "bound_ms": b_ms * n,
         "bound_by": b_by, "library_ms": None, "variant": which,
         "prev_design_ms": prev * n, "profiler_ms": prof * n,
@@ -977,7 +1186,16 @@ def main() -> int:
             "ssd_chunked": check_ssd(g, ssd_kernel, ssd_ref)}
 
     phase("estimation path")
-    kernels = [estimation_path(g, lqt_kernel, lqt_ref)]
+    paths = {"estimation": estimation_path(lqt_kernel)}
+    torch.cuda.empty_cache()
+
+    phase(f"nonlinear path: coordinated turn, {NL_MODE}, {NL_ITERS} "
+          f"iterations")
+    paths["nonlinear"] = nonlinear_path(lqt_kernel)
+    torch.cuda.empty_cache()
+
+    phase("lqt_combine timing at the estimation paths' shapes")
+    kernels = [lqt_timing(g, lqt_kernel, lqt_ref, paths)]
     torch.cuda.empty_cache()
 
     phase(f"serving path: {LM_ARCH}, bfloat16, full width")

@@ -13,7 +13,7 @@ from typing import Mapping, Sequence, Union
 import numpy as np
 import torch
 
-from .core.sde import LinearSDE
+from .core.sde import LinearSDE, NonlinearSDE
 from .core.types import GridLQT, LQTElement
 
 Arrays = Union[Mapping[str, object], Sequence[object]]
@@ -41,6 +41,17 @@ def linear_sde_from_numpy(arrays: Arrays, *, device="cpu",
     torch callable of t, kept as it is (a time-varying model)."""
     return LinearSDE(*(_to(a, device, dtype)
                        for a in _fields(arrays, _SDE_FIELDS)))
+
+
+def nonlinear_sde_from_numpy(arrays: Arrays, f, h, *, device="cpu",
+                             dtype: torch.dtype = torch.float64
+                             ) -> NonlinearSDE:
+    """``Q, R, m0, P0`` (a mapping by name or a sequence in that order)
+    and the torch callables ``f(x, t)``, ``h(x, t)`` ->
+    :class:`NonlinearSDE`.  ``Q``/``R`` may instead be torch callables of
+    t, kept as they are."""
+    return NonlinearSDE(f, h, *(_to(a, device, dtype) for a in _fields(
+        arrays, ("Q", "R", "m0", "P0"))))
 
 
 def grid_from_numpy(arrays: Arrays, *, device="cpu",

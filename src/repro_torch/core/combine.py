@@ -113,3 +113,27 @@ def value_as_element(vf: ValueFn) -> LQTElement:
     Z = torch.zeros_like(S)
     z = torch.zeros_like(v)
     return LQTElement(Z, z, Z, v, S)
+
+
+def elem_min_initial(e0: LQTElement, jitter: float = 0.0) -> LQTElement:
+    """Eq. (50): fold the free-initial-condition element ``e`` (eq. 49,
+    kappa -> infinity) into the first element: ``a0_bar = e (x) a0``.
+
+    Requires J0 invertible; an optional diagonal ``jitter`` (scaled by the
+    mean diagonal of J0, per element) regularises near-singular first
+    blocks.  The returned element carries the jittered J0, as the
+    reference's does.
+    """
+    A0, b0, C0, eta0, J0 = e0
+    nx = A0.shape[-1]
+    if jitter:
+        scale = torch.diagonal(J0, dim1=-2, dim2=-1).sum(-1) / nx
+        J0 = J0 + (jitter * scale)[..., None, None] * _eye_like(J0)
+    sol = torch.linalg.solve(
+        J0, torch.cat([eta0.unsqueeze(-1), A0.transpose(-1, -2)], dim=-1))
+    J0ie = sol[..., 0]
+    J0iA0T = sol[..., 1:]
+    Abar = torch.zeros_like(A0)
+    bbar = b0 + _mv(A0, J0ie)
+    Cbar = _sym(A0 @ J0iA0T + C0)
+    return LQTElement(Abar, bbar, Cbar, eta0, J0)

@@ -1,15 +1,22 @@
 """Per-block scan-element construction and within-block fills.
 
-This slice ports the ``discrete`` element mode: each Euler substep of the
-control problem has a CLOSED-FORM conditional value function
+Two element modes, as in the reference package:
 
-    A = I + dt F~,  b = dt c~,  C = dt Q~,
-    J = dt H~^T R~^{-1} H~,     eta = dt (H~^T R~^{-1} (y~ - r~) - lin)
+* ``euler`` (paper-faithful) / ``rk4``: integrate the backward conditional
+  HJB ODEs of eq. (43) over the n substeps of each block, from the
+  identity boundary at the block end.
+* ``discrete``: each Euler substep of the control problem has a
+  CLOSED-FORM conditional value function
 
-and composing these with the exact combine (42) solves the
-Euler-discretised problem EXACTLY, so parallel == sequential to float
-round-off.  The paper's ``euler``/``rk4`` ODE modes are not ported yet
-(ROADMAP.md, queue 1).
+      A = I + dt F~,  b = dt c~,  C = dt Q~,
+      J = dt H~^T R~^{-1} H~,     eta = dt (H~^T R~^{-1} (y~ - r~) - lin)
+
+  and composing these with the exact combine (42) solves the
+  Euler-discretised problem EXACTLY, so parallel == sequential to float
+  round-off.
+
+Also the within-block interior fills: the backward value fill (eq. 15 /
+information-form steps) and the forward value fill (eq. 51).
 
 Blocks are independent, so where the reference ``vmap``s over blocks these
 functions carry the block axis (and any record dims) as leading tensor
@@ -21,18 +28,8 @@ from typing import Tuple
 
 import torch
 
-from .combine import _mv, apply_element_to_value, lqt_combine
+from .combine import _mv, _sym, apply_element_to_value, lqt_combine
 from .types import GridLQT, LQTElement, Tensor, ValueFn
-
-
-def require_discrete(mode: str) -> None:
-    """Reject the element modes this port does not implement yet."""
-    if mode in ("euler", "rk4"):
-        raise NotImplementedError(
-            f"mode={mode!r} (the paper's ODE element modes) is not ported "
-            f"yet; see ROADMAP.md, queue 1. Use mode='discrete'.")
-    if mode != "discrete":
-        raise ValueError(f"unknown element mode: {mode!r}")
 
 
 def _check_blocks(N: int, nsub: int) -> int:
@@ -90,6 +87,88 @@ def identity_element(nx: int, dtype: torch.dtype, device=None) -> LQTElement:
     return LQTElement(I, z, Z, z, Z)
 
 
+def _bcast(d: Tensor, a: Tensor) -> Tensor:
+    """Step sizes ``d`` ``(*lead)`` shaped to scale ``a`` ``(*lead, ...)``."""
+    return d.reshape(d.shape + (1,) * (a.dim() - d.dim()))
+
+
+def _hjb_derivs(e: LQTElement, F, c, H, r, Q, Rinv, y, lin) -> LQTElement:
+    """Right-hand sides of eq. (43) (with the optional linear-cost term)."""
+    A, b, C, eta, J = e
+    Ft = F.transpose(-1, -2)
+    HtRi = H.transpose(-1, -2) @ Rinv
+    innov = _mv(HtRi, y - r)
+    dA = -A @ (Q @ J + F)
+    db = -_mv(A, _mv(Q, eta) + c)
+    dC = -A @ Q @ A.transpose(-1, -2)
+    deta = _mv(J, _mv(Q, eta) + c) - _mv(Ft, eta) - innov + lin
+    dJ = J @ Q @ J - J @ F - Ft @ J - HtRi @ H
+    return LQTElement(dA, db, dC, deta, dJ)
+
+
+def _riccati_derivs(S, v, F, c, H, r, Q, Rinv, y, lin):
+    """Right-hand sides of the Riccati equations (15) for (S, v)."""
+    Ft = F.transpose(-1, -2)
+    HtRi = H.transpose(-1, -2) @ Rinv
+    dS = S @ Q @ S - S @ F - Ft @ S - HtRi @ H
+    dv = _mv(S, _mv(Q, v) + c) - _mv(Ft, v) - _mv(HtRi, y - r) + lin
+    return dS, dv
+
+
+def _ode_step_backward(deriv_fn, y, dtk: Tensor, integrator: str):
+    """One backward step y(s - dt) of an autonomous-per-interval ODE over
+    a tuple of tensors ``y``; ``dtk`` carries the leading (block, record)
+    dims of the step.
+
+    ``rk4`` treats the interval's coefficients as frozen (they are grid
+    samples) but integrates the state nonlinearity (the Riccati quadratic
+    terms) to 4th order -- the reference's accuracy/stiffness upgrade over
+    the paper's explicit Euler.
+    """
+    def axpy(a, d, s):           # a + s * d, s broadcast over d's trailing
+        return a + _bcast(s, d) * d
+
+    if integrator == "euler":
+        k1 = deriv_fn(y)
+        return type(y)(*(a - _bcast(dtk, d) * d for a, d in zip(y, k1)))
+    if integrator == "rk4":
+        h = -dtk
+        k1 = deriv_fn(y)
+        k2 = deriv_fn(type(y)(*(axpy(a, d, 0.5 * h) for a, d in zip(y, k1))))
+        k3 = deriv_fn(type(y)(*(axpy(a, d, 0.5 * h) for a, d in zip(y, k2))))
+        k4 = deriv_fn(type(y)(*(axpy(a, d, h) for a, d in zip(y, k3))))
+        return type(y)(*(
+            a + _bcast(h / 6.0, d1) * (d1 + 2 * d2 + 2 * d3 + d4)
+            for a, d1, d2, d3, d4 in zip(y, k1, k2, k3, k4)))
+    raise ValueError(f"unknown integrator: {integrator}")
+
+
+def _substeps(grid: GridLQT, nsub: int):
+    """The block view's coefficients, one tuple per substep ``l``:
+    ``(dt, F, c, H, r, Q, Rinv, y, lin)`` each ``(T, *R, ...)``."""
+    g = _block_view(grid, nsub)
+    lin = _lin_term(grid).reshape(g.c.shape)
+    fields = (g.dt, g.F, g.c, g.H, g.r, g.Q, g.Rinv, g.y, lin)
+    return [tuple(a[:, l] for a in fields) for l in range(nsub)]
+
+
+def euler_block_elements(grid: GridLQT, nsub: int,
+                         integrator: str = "euler") -> LQTElement:
+    """Paper mode: per-block ODE integration of (43), all blocks at once.
+
+    Within each block the integration runs BACKWARD from the identity
+    boundary at the block end (eq. 34: A=I, b=0, C=0, eta=0, J=0), using
+    the substep-l coefficients for step [tau_l, tau_l+1].  ``integrator``:
+    "euler" (paper) or "rk4" (see ``_ode_step_backward``).
+    """
+    steps = _substeps(grid, nsub)
+    e = identity_element(grid.nx, grid.F.dtype, grid.F.device)
+    for dtk, *coef in reversed(steps):
+        e = _ode_step_backward(lambda ee: _hjb_derivs(ee, *coef), e, dtk,
+                               integrator)
+    return e
+
+
 def discrete_block_elements(
     grid: GridLQT, nsub: int
 ) -> Tuple[LQTElement, LQTElement]:
@@ -122,3 +201,75 @@ def backward_value_fill_discrete(sub_elems: LQTElement,
         out[l] = carry
     return ValueFn(torch.stack([o.S for o in out], dim=1),
                    torch.stack([o.v for o in out], dim=1))
+
+
+def backward_value_fill_euler(grid: GridLQT, nsub: int, boundary: ValueFn,
+                              integrator: str = "euler") -> ValueFn:
+    """ODE-integrate the Riccati eqs. (15) backwards inside each block.
+
+    ``boundary`` holds (S, v) at the RIGHT end of each block (``(T, ...)``);
+    returns per-substep values at the LEFT points of every substep
+    (``(T, n, ...)``).  ``integrator``: euler (paper) / rk4.
+    """
+    steps = _substeps(grid, nsub)
+    carry = boundary
+    out = [None] * nsub
+    for l in range(nsub - 1, -1, -1):
+        dtk, *coef = steps[l]
+        S, v = _ode_step_backward(
+            lambda sv: _riccati_derivs(*sv, *coef), carry, dtk, integrator)
+        carry = out[l] = ValueFn(_sym(S), v)
+    return ValueFn(torch.stack([o.S for o in out], dim=1),
+                   torch.stack([o.v for o in out], dim=1))
+
+
+def forward_hjb_step(e: LQTElement, dtk, F, c, H, r, Q, Rinv, y,
+                     lin) -> LQTElement:
+    """One explicit Euler step of the forward HJB ODEs (51) (all five
+    equations, C and J re-symmetrised)."""
+    A, b, C, eta, J = e
+    HtRi = H.transpose(-1, -2) @ Rinv
+    CHtRi = C @ HtRi
+    innov = _mv(HtRi, y - r)
+    At = A.transpose(-1, -2)
+    dA = -CHtRi @ (H @ A) + F @ A
+    db = (_mv(C, innov) + _mv(F, b) + c
+          - _mv(CHtRi, _mv(H, b)) - _mv(C, lin))
+    dC = -CHtRi @ (H @ C) + Q + F @ C + C @ F.transpose(-1, -2)
+    deta = _mv(At, innov - _mv(HtRi, _mv(H, b)) - lin)
+    dJ = At @ HtRi @ (H @ A)
+    def step(d):
+        return _bcast(dtk, d) * d
+
+    return LQTElement(A + step(dA), b + step(db), _sym(C + step(dC)),
+                      eta + step(deta), _sym(J + step(dJ)))
+
+
+def forward_value_fill_euler(grid: GridLQT, nsub: int,
+                             left: LQTElement) -> LQTElement:
+    """Euler-integrate the forward HJB ODEs (51) inside each block.
+
+    ``left`` holds the forward conditional value function parameters at
+    the LEFT end of each block (``(T, ...)``); returns parameters at the
+    RIGHT point of every substep (``(T, n, ...)``).  All five equations
+    are propagated (a full-rank left element, identity for block-0
+    interiors via eq. 39, needs all five).
+    """
+    carry = left
+    out = []
+    for dtk, *coef in _substeps(grid, nsub):
+        carry = forward_hjb_step(carry, dtk, *coef)
+        out.append(carry)
+    return LQTElement(*(torch.stack(xs, dim=1) for xs in zip(*out)))
+
+
+def forward_value_fill_discrete(sub_elems: LQTElement,
+                                left: LQTElement) -> LQTElement:
+    """Exact in-block forward combine (``discrete`` mode): ``(T, n, ...)``
+    elements from ``left`` ``(T, ...)``."""
+    carry = left
+    out = []
+    for l in range(sub_elems.A.shape[1]):
+        carry = lqt_combine(carry, LQTElement(*(a[:, l] for a in sub_elems)))
+        out.append(carry)
+    return LQTElement(*(torch.stack(xs, dim=1) for xs in zip(*out)))

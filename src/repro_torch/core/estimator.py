@@ -1,8 +1,8 @@
 """The estimation surface: ``Estimator.solve(Problem) -> Solution``.
 
 * :class:`Problem` describes WHAT to solve -- model + time grid +
-  measurements (+ optional mask / information-form prior), as one record
-  (:meth:`Problem.single`) or records sharing a length
+  measurements (+ optional mask / information-form prior / warm start), as
+  one record (:meth:`Problem.single`) or records sharing a length
   (:meth:`Problem.stacked`).  The constructors validate shapes up front.
 * :class:`~repro_torch.core.options.SolverOptions` subclasses describe HOW;
   each registered method owns its options dataclass.
@@ -10,7 +10,13 @@
   defaults to ``"cuda"``; without a card it raises unless the caller asks
   for ``device="cpu"``.
 * :class:`~repro_torch.core.types.Solution` is the result, with the
-  Onsager-Machlup cost of the estimate.
+  Onsager-Machlup cost of the estimate (and, for nonlinear models, the cost
+  and step-norm traces of the iterations).
+
+Nonlinear models are solved with the iterated linearisation of section
+4.4 (:func:`repro_torch.core.nonlinear.iterated_solve`); wrap the inner
+method options in :class:`~repro_torch.core.options.IteratedOptions` to
+control the outer loop.
 
 Records are solved together: the record batch rides as a tensor dim right
 after the time axis through every stage (a single problem is a batch of
@@ -20,14 +26,18 @@ one), so each scan level is one batched operation -- one kernel launch for
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
+from .nonlinear import iterated_solve
+from .options import IteratedOptions, SolverOptions
 from .registry import get_method
-from .sde import LinearSDE, grid_lqt_from_linear, om_cost_grid
+from .sde import LinearSDE, NonlinearSDE, grid_lqt_from_linear, om_cost_grid
 from .types import Solution
+
+Model = Union[LinearSDE, NonlinearSDE]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -36,7 +46,7 @@ def _tensor(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a))
 
 
-def _check_ny(model: LinearSDE, y) -> None:
+def _check_ny(model: Model, y) -> None:
     """Reject measurements whose trailing dimension does not match the
     model's ``ny``: a mismatched ``y`` would otherwise broadcast silently
     against ``H x`` (skipped when ``R`` is a callable)."""
@@ -63,7 +73,7 @@ def _check_mask(mask, shape) -> torch.Tensor:
     return mask
 
 
-def _check_prior(model: LinearSDE, prior, batch: Optional[int]):
+def _check_prior(model: Model, prior, batch: Optional[int]):
     """Validate an information-form prior override ``(S0, v0)``: shared
     ``(nx, nx)``/``(nx,)`` or, for stacked problems, per-record
     ``(B, nx, nx)``/``(B, nx)`` (both components must agree)."""
@@ -91,28 +101,59 @@ def _check_prior(model: LinearSDE, prior, batch: Optional[int]):
     return (S0, v0)
 
 
+def _check_x_init(model: Model, x_init, N: int, batch: Optional[int]):
+    """Validate a warm start of the iterated linearisation: shared
+    ``(nx,)``/``(N+1, nx)`` or, for stacked problems, per-record
+    ``(B, nx)``/``(B, N+1, nx)``."""
+    if x_init is None:
+        return None
+    if not isinstance(model, NonlinearSDE):
+        raise ValueError(
+            "x_init is only meaningful for NonlinearSDE problems (it warm-"
+            "starts the iterated linearisation)")
+    x_init = _tensor(x_init)
+    nx = model.nx
+    shared = {(nx,), (N + 1, nx)}
+    if batch is None:
+        if tuple(x_init.shape) not in shared:
+            raise ValueError(
+                f"x_init must be ({nx},) or ({N + 1}, {nx}), "
+                f"got {tuple(x_init.shape)}")
+    else:
+        batched = {(batch, nx), (batch, N + 1, nx)}
+        if tuple(x_init.shape) not in shared | batched:
+            raise ValueError(
+                f"x_init must be shared ({nx},)/({N + 1}, {nx}) or "
+                f"per-record ({batch}, {nx})/({batch}, {N + 1}, {nx}), "
+                f"got {tuple(x_init.shape)}")
+    return x_init
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Problem:
-    """One estimation workload: model + data (+ optional mask / prior).
+    """One estimation workload: model + data (+ optional mask / prior /
+    warm start).
 
     Build via :meth:`single` or :meth:`stacked`; arrays may be tensors or
     anything ``numpy.array`` takes.  They are moved to the estimator's
     device and the model's dtype at solve time.
     """
 
-    model: LinearSDE
+    model: Model
     ts: Any
     y: Any
     measurement_mask: Optional[torch.Tensor] = None
+    x_init: Any = None
     prior: Any = None
     kind: str = "single"
 
     @classmethod
-    def single(cls, model: LinearSDE, ts, y, *, measurement_mask=None,
-               prior=None) -> "Problem":
+    def single(cls, model: Model, ts, y, *, measurement_mask=None,
+               x_init=None, prior=None) -> "Problem":
         """One record: ``ts`` ``(N+1,)``, ``y`` ``(N, ny)``; ``prior``
         ``(S0, v0)`` is an information-form initial boundary replacing the
-        model's ``(m0, P0)``."""
+        model's ``(m0, P0)``; ``x_init`` (nonlinear models) ``(nx,)`` or
+        ``(N+1, nx)`` warm-starts the iterated linearisation."""
         ts, y = _tensor(ts), _tensor(y)
         if y.dim() != 2 or y.shape[0] < 1:
             raise ValueError(
@@ -124,15 +165,22 @@ class Problem:
         _check_ny(model, y)
         if measurement_mask is not None:
             measurement_mask = _check_mask(measurement_mask, (N,))
+        x_init = _check_x_init(model, x_init, N, None)
         prior = _check_prior(model, prior, None)
-        return cls(model, ts, y, measurement_mask, prior, kind="single")
+        return cls(model, ts, y, measurement_mask, x_init, prior,
+                   kind="single")
 
     @classmethod
-    def stacked(cls, model: LinearSDE, ts, ys, *, measurement_mask=None,
-                prior=None) -> "Problem":
+    def stacked(cls, model: Model, ts, ys, *, measurement_mask=None,
+                x_init=None, prior=None) -> "Problem":
         """Stacked records ``ys`` ``(B, N, ny)`` sharing the interval
         count; ``ts`` shared ``(N+1,)`` or per-record ``(B, N+1)``;
-        ``prior`` shared or per-record (see :meth:`single`)."""
+        ``prior`` shared or per-record (see :meth:`single`).
+
+        ``x_init`` (nonlinear models): shared ``(nx,)`` / ``(N+1, nx)``
+        or per-record ``(B, nx)`` / ``(B, N+1, nx)``.  If ``B == N+1``
+        makes a rank-2 shape ambiguous, the per-record reading wins --
+        tile to ``(B, N+1, nx)`` to force a shared trajectory."""
         ys = _tensor(ys)
         if ys.dim() != 3:
             raise ValueError(f"ys must be (B, N, ny), got shape "
@@ -151,8 +199,10 @@ class Problem:
         _check_ny(model, ys)
         if measurement_mask is not None:
             measurement_mask = _check_mask(measurement_mask, (B, N))
+        x_init = _check_x_init(model, x_init, N, B)
         prior = _check_prior(model, prior, B)
-        return cls(model, ts, ys, measurement_mask, prior, kind="stacked")
+        return cls(model, ts, ys, measurement_mask, x_init, prior,
+                   kind="stacked")
 
     @property
     def num_records(self) -> int:
@@ -173,37 +223,107 @@ class Estimator:
     """MAP estimation for one model + method + options on one device.
 
     Args:
-      model: :class:`LinearSDE`; problems passed to :meth:`solve` must be
-        built with this model object.
+      model: :class:`LinearSDE` or :class:`NonlinearSDE`; problems passed
+        to :meth:`solve` must be built with this model object.
       method: registered method name (see
         :func:`repro_torch.core.registry.method_names`), e.g.
         ``"parallel_rts"`` or ``"parallel_kernel"`` (the CUDA-kernel scan).
-      options: instance of the method's options class; ``None`` means all
-        defaults.
+      options: instance of the method's options class; for nonlinear
+        models either that or an :class:`IteratedOptions` wrapping it.
+        ``None`` means all defaults.
       device: where the solve runs; ``None`` means ``"cuda"``.
-      diagnostics: compute ``Solution.cost`` (default); ``False`` skips it.
+      diagnostics: compute ``Solution.cost`` (and the iteration traces of
+        nonlinear solves; default); ``False`` skips them.
     """
 
-    def __init__(self, model: LinearSDE, *, method: str = "parallel_rts",
+    def __init__(self, model: Model, *, method: str = "parallel_rts",
                  options=None, device=None, diagnostics: bool = True):
         self._spec = get_method(method)
         self.model = model
         self.method = method
-        cls = self._spec.options_cls
-        if options is None:
-            options = cls()
-        if not isinstance(options, cls):
-            raise TypeError(
-                f"options for method {method!r} must be {cls.__name__}, "
-                f"got {type(options).__name__}")
-        self.options = options
+        self.options = self._resolve_options(options)
+        # The spec that solves each (linearised) grid problem: an iterated
+        # nonlinear method delegates to its options' inner_method; every
+        # other method IS the grid solver.
+        self._grid_spec = (get_method(self.options.inner_method)
+                           if self._spec.nonlinear else self._spec)
         self.device = resolve_device(device)
         self.diagnostics = diagnostics
         self._model = model.to(device=self.device)
 
+    def _resolve_options(self, options):
+        cls = self._spec.options_cls
+        nonlinear_model = isinstance(self.model, NonlinearSDE)
+        if self._spec.nonlinear:
+            # An iterated nonlinear method: the options ARE the outer-loop
+            # options; the grid solver is named by options.inner_method.
+            if not nonlinear_model:
+                raise TypeError(
+                    f"method {self.method!r} is an iterated nonlinear "
+                    f"method and needs a NonlinearSDE model, got "
+                    f"{type(self.model).__name__}")
+            if options is None:
+                options = cls()
+            elif isinstance(options, SolverOptions):
+                options = cls(inner=options)
+            elif not isinstance(options, cls):
+                raise TypeError(
+                    f"options for method {self.method!r} must be "
+                    f"{cls.__name__} (or a bare inner-method SolverOptions),"
+                    f" got {type(options).__name__}")
+            inner_spec = get_method(options.inner_method)
+            if inner_spec.nonlinear:
+                raise ValueError(
+                    f"inner_method {options.inner_method!r} is itself an "
+                    f"iterated nonlinear method; it must name a linear grid "
+                    f"solver (e.g. 'parallel_rts', 'sequential_rts')")
+            inner = (options.inner if options.inner is not None
+                     else inner_spec.options_cls())
+            if not isinstance(inner, inner_spec.options_cls):
+                raise TypeError(
+                    f"{cls.__name__}.inner for inner_method "
+                    f"{options.inner_method!r} must be "
+                    f"{inner_spec.options_cls.__name__}, got "
+                    f"{type(inner).__name__}")
+            return options.replace(inner=inner)
+        if nonlinear_model:
+            if options is None:
+                options = IteratedOptions()
+            elif isinstance(options, cls):
+                options = IteratedOptions(inner=options)
+            elif not isinstance(options, IteratedOptions):
+                raise TypeError(
+                    f"options for nonlinear method {self.method!r} must be "
+                    f"{cls.__name__} or IteratedOptions, got "
+                    f"{type(options).__name__}")
+            if type(options) is not IteratedOptions:
+                raise TypeError(
+                    f"{type(options).__name__} belongs to an iterated "
+                    f"nonlinear method, not method={self.method!r}; use "
+                    f"the method it was registered with or plain "
+                    f"IteratedOptions")
+            inner = options.inner if options.inner is not None else cls()
+            if not isinstance(inner, cls):
+                raise TypeError(
+                    f"IteratedOptions.inner for method {self.method!r} must "
+                    f"be {cls.__name__}, got {type(inner).__name__}")
+            return options.replace(inner=inner)
+        if isinstance(options, IteratedOptions):
+            raise TypeError(
+                "IteratedOptions is for NonlinearSDE models; linear models "
+                f"take {cls.__name__}")
+        if options is None:
+            options = cls()
+        if not isinstance(options, cls):
+            raise TypeError(
+                f"options for method {self.method!r} must be "
+                f"{cls.__name__}, got {type(options).__name__}")
+        return options
+
     def solve(self, problem: Problem) -> Solution:
         """Solve a :class:`Problem`; stacked solutions carry the record
-        axis first (``x`` ``(B, N+1, nx)``)."""
+        axis first (``x`` ``(B, N+1, nx)``, ``cost_trace``
+        ``(B, iterations)``)."""
         if problem.model is not self.model:
             raise ValueError(
                 "problem.model is not this Estimator's model object; build "
@@ -216,28 +336,71 @@ class Estimator:
 
         ts, y, mask = put(problem.ts), put(problem.y), put(
             problem.measurement_mask)
+        x_init = put(problem.x_init)
         prior = None if problem.prior is None else tuple(
             put(a) for a in problem.prior)
         # Record axis right after the time axis; a single record is a
         # batch of one.
-        if problem.kind == "single":
+        single = problem.kind == "single"
+        if single:
             ts, y = ts[:, None], y[:, None]
             mask = None if mask is None else mask[:, None]
+            if x_init is not None and x_init.dim() == 2:
+                x_init = x_init[:, None]                  # (N+1, 1, nx)
         else:
             B = y.shape[0]
             y = y.movedim(0, 1)
             ts = ts.T if ts.dim() == 2 else ts[:, None].expand(-1, B)
             mask = None if mask is None else mask.T
-        grid = grid_lqt_from_linear(self._model, ts, y,
-                                    measurement_mask=mask, prior=prior)
-        sol = self._spec.solver(grid, self.options)
-        cost = om_cost_grid(grid, sol.x) if self.diagnostics else None
+            if x_init is not None:
+                x_init = self._stacked_x_init(x_init, B)
+
+        trace = steps = None
+        if isinstance(self.model, NonlinearSDE):
+            o = self.options
+            sol, trace, steps = iterated_solve(
+                self._model, ts, y,
+                lambda grid: self._grid_spec.solver(grid, o.inner),
+                iterations=o.iterations,
+                divergence_correction=o.divergence_correction,
+                x_init=x_init, measurement_mask=mask, prior=prior,
+                track_costs=self.diagnostics,
+                linearization=o.linearization)
+            cost = None if trace is None else trace[-1]
+        else:
+            grid = grid_lqt_from_linear(self._model, ts, y,
+                                        measurement_mask=mask, prior=prior)
+            sol = self._spec.solver(grid, self.options)
+            cost = om_cost_grid(grid, sol.x) if self.diagnostics else None
 
         def surface(a):
+            if a is None:
+                return None
             a = a.movedim(1, 0).contiguous()              # (R, N+1, ...)
-            return a[0] if problem.kind == "single" else a
+            return a[0] if single else a
+
+        def per_record(a):                 # (*R) or (iterations, *R)
+            if a is None:
+                return None
+            a = a.movedim(0, -1) if a.dim() == 2 else a
+            return a[0] if single else a
 
         return Solution(
             x=surface(sol.x), S=surface(sol.S), v=surface(sol.v),
-            cost=None if cost is None else (
-                cost[0] if problem.kind == "single" else cost))
+            cov=surface(sol.cov), cost=per_record(cost),
+            cost_trace=per_record(trace), step_norms=per_record(steps))
+
+    @staticmethod
+    def _stacked_x_init(x_init: torch.Tensor, B: int) -> torch.Tensor:
+        """A stacked problem's warm start in the port's layout: ``(nx,)``
+        stays, a shared ``(N+1, nx)`` gains a record dim, per-record
+        ``(B, nx)`` points and ``(B, N+1, nx)`` trajectories move their
+        record axis after time.  In the ambiguous ``B == N+1`` rank-2 case
+        the per-record reading wins."""
+        if x_init.dim() == 1:
+            return x_init
+        if x_init.dim() == 2 and x_init.shape[0] != B:
+            return x_init[:, None]
+        if x_init.dim() == 2:
+            return x_init[None]                           # (1, B, nx)
+        return x_init.movedim(0, 1)

@@ -7,9 +7,16 @@ dataclass registered alongside the solver
 * :class:`SequentialOptions` -- ``mode`` only;
 * :class:`ParallelOptions` -- ``mode`` + ``nsub`` (blocks of ``nsub``
   substeps feed the associative scan);
+* :class:`TwoFilterOptions` -- parallel options + the two-filter knobs
+  ``block0_fill`` / ``tf_fill`` / ``jitter`` of
+  :func:`repro_torch.core.parallel.parallel_two_filter`;
 * :class:`KernelOptions` -- parallel options + the CUDA-kernel knobs of the
   ``parallel_kernel`` method (``block_size`` threads per CUDA block,
-  ``precision`` compute dtype of the kernel scan).
+  ``precision`` compute dtype of the kernel scan);
+* :class:`IteratedOptions` -- the iterated-linearisation (nonlinear) layer:
+  ``iterations`` / ``divergence_correction`` / ``linearization`` plus the
+  ``inner`` options of the linear method that solves each linearised
+  subproblem.
 
 Unknown option names fail at construction (``TypeError`` from the
 dataclass ``__init__``); bad values fail in ``__post_init__``.
@@ -17,6 +24,9 @@ dataclass ``__init__``); bad values fail in ``__post_init__``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+from repro_torch.linearize import get_linearization
 
 MODES = ("euler", "rk4", "discrete")
 
@@ -26,9 +36,8 @@ class SolverOptions:
     """Base options shared by every grid solver.
 
     ``mode`` selects the element discretisation: ``"euler"`` / ``"rk4"``
-    integrate the paper's ODEs (43) literally (not ported yet: a solve
-    raises ``NotImplementedError``); ``"discrete"`` composes exact substep
-    elements so parallel == sequential to round-off.
+    integrate the paper's ODEs (43) literally; ``"discrete"`` composes
+    exact substep elements so parallel == sequential to round-off.
     """
 
     mode: str = "euler"
@@ -58,6 +67,27 @@ class ParallelOptions(SolverOptions):
         super().__post_init__()
         if not isinstance(self.nsub, int) or self.nsub < 1:
             raise ValueError(f"nsub must be a positive int, got {self.nsub!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoFilterOptions(ParallelOptions):
+    """Parallel two-filter smoother options (see
+    :func:`repro_torch.core.parallel.parallel_two_filter` for semantics)."""
+
+    block0_fill: str = "affine"
+    tf_fill: str = "combine"
+    jitter: float = 1e-9
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.block0_fill not in ("affine", "min_initial"):
+            raise ValueError(
+                f"block0_fill must be 'affine' or 'min_initial', "
+                f"got {self.block0_fill!r}")
+        if self.tf_fill not in ("combine", "hjb_euler"):
+            raise ValueError(
+                f"tf_fill must be 'combine' or 'hjb_euler', "
+                f"got {self.tf_fill!r}")
 
 
 KERNEL_PRECISIONS = ("default", "float32", "float64")
@@ -90,3 +120,39 @@ class KernelOptions(ParallelOptions):
             raise ValueError(
                 f"precision must be one of {KERNEL_PRECISIONS}, "
                 f"got {self.precision!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class IteratedOptions:
+    """Options of the iterated-linearisation layer (nonlinear models only).
+
+    ``inner`` carries the options of the method solving each linearised
+    subproblem; ``None`` means the method's defaults.  Passing a bare
+    method-options instance to :class:`~repro_torch.core.Estimator` for a
+    nonlinear model is the same as ``IteratedOptions(inner=that)``.
+
+    ``linearization`` selects how each iteration linearises the model: a
+    registered name (``"taylor"``) or a
+    :class:`repro_torch.linearize.Linearization` instance, resolved to an
+    instance at construction so that a bad name fails here.
+    """
+
+    iterations: int = 5
+    divergence_correction: bool = False
+    inner: Optional[SolverOptions] = None
+    linearization: object = "taylor"
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.iterations, int) or self.iterations < 1:
+            raise ValueError(
+                f"iterations must be a positive int, got {self.iterations!r}")
+        if self.inner is not None and not isinstance(self.inner,
+                                                     SolverOptions):
+            raise TypeError(
+                f"inner must be a SolverOptions instance, got "
+                f"{type(self.inner).__name__}")
+        object.__setattr__(self, "linearization",
+                           get_linearization(self.linearization))
+
+    def replace(self, **changes) -> "IteratedOptions":
+        return dataclasses.replace(self, **changes)

@@ -5,20 +5,27 @@ Each entry is a :class:`MethodSpec` pairing the solver callable with the
 
     registry.register_method("my_method", solver, MyOptions)
 
-where ``solver(grid: GridLQT, options: MyOptions) -> MAPSolution``.
+where ``solver(grid: GridLQT, options: MyOptions) -> MAPSolution``.  A
+method whose options class is an
+:class:`~repro_torch.core.options.IteratedOptions` subclass is an iterated
+nonlinear method (``MethodSpec.nonlinear``): it is not a grid solver, and
+its options name the linear method (``inner_method``) that solves each
+linearised subproblem.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple, Tuple, Type
 
 from .options import (
+    IteratedOptions,
     KernelOptions,
     ParallelOptions,
     SequentialOptions,
     SolverOptions,
+    TwoFilterOptions,
 )
-from .parallel import parallel_rts
-from .sequential import sequential_rts
+from .parallel import parallel_rts, parallel_two_filter
+from .sequential import sequential_rts, sequential_two_filter
 from .types import GridLQT, MAPSolution
 
 Solver = Callable[[GridLQT, SolverOptions], MAPSolution]
@@ -31,6 +38,13 @@ class MethodSpec(NamedTuple):
     solver: Solver
     options_cls: Type[SolverOptions]
 
+    @property
+    def nonlinear(self) -> bool:
+        """True for iterated nonlinear methods (options subclass
+        ``IteratedOptions``): they need a nonlinear model and delegate each
+        linearised subproblem to an inner linear method."""
+        return issubclass(self.options_cls, IteratedOptions)
+
 
 _METHODS: Dict[str, MethodSpec] = {}
 
@@ -40,9 +54,10 @@ def register_method(name: str, solver: Solver,
                     overwrite: bool = False) -> None:
     """Register ``solver(grid, options) -> MAPSolution`` under ``name``."""
     if not (isinstance(options_cls, type)
-            and issubclass(options_cls, SolverOptions)):
+            and issubclass(options_cls, (SolverOptions, IteratedOptions))):
         raise TypeError(
-            f"options_cls must be a SolverOptions subclass, got "
+            f"options_cls must be a SolverOptions subclass (or an "
+            f"IteratedOptions subclass for nonlinear methods), got "
             f"{options_cls!r}")
     if name in _METHODS and not overwrite:
         raise ValueError(f"method {name!r} already registered")
@@ -84,6 +99,16 @@ register_method(
     ParallelOptions)
 register_method("parallel_kernel", _parallel_kernel_solver, KernelOptions)
 register_method(
+    "parallel_two_filter",
+    lambda grid, o: parallel_two_filter(
+        grid, o.nsub, o.mode, jitter=o.jitter,
+        block0_fill=o.block0_fill, tf_fill=o.tf_fill),
+    TwoFilterOptions)
+register_method(
     "sequential_rts",
     lambda grid, o: sequential_rts(grid, o.mode),
+    SequentialOptions)
+register_method(
+    "sequential_two_filter",
+    lambda grid, o: sequential_two_filter(grid, o.mode),
     SequentialOptions)

@@ -1,5 +1,6 @@
-"""Linear continuous-time state-space models, grid discretisation,
-simulation and the discretised Onsager-Machlup cost (eq. 2).
+"""Continuous-time state-space models (linear eq. 12 and nonlinear eq. 1),
+grid discretisation, simulation and the discretised Onsager-Machlup cost
+(eq. 2).
 
 Grid conventions (as in the reference package):
 
@@ -21,6 +22,10 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.linearize import get_linearization
+from repro_torch.linearize.base import vmap_points
+from repro_torch.linearize.taylor import taylor_linearize_grid
+
 from .combine import _mv, _solve_vec
 from .types import GridLQT, Tensor
 
@@ -31,8 +36,41 @@ Coef = Union[Tensor, Callable[[Tensor], Tensor]]
 Prior = Tuple[Tensor, Tensor]
 
 
+class _Model:
+    """What the linear and nonlinear models share: sizes, dtype, device
+    moves and grid evaluation of a coefficient."""
+
+    @property
+    def nx(self) -> int:
+        return self.m0.shape[-1]
+
+    @property
+    def ny(self) -> Optional[int]:
+        """Measurement dimension, or ``None`` when ``R`` is a callable."""
+        return None if callable(self.R) else self.R.shape[-1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.m0.dtype
+
+    def to(self, device=None, dtype=None):
+        """Copy with every constant tensor moved/cast (callables are kept)."""
+        def move(a):
+            return a if callable(a) else a.to(device=device, dtype=dtype)
+
+        return type(self)(*(move(getattr(self, f.name))
+                            for f in dataclasses.fields(self)))
+
+    @staticmethod
+    def _eval(item: Coef, tl: Tensor) -> Tensor:
+        if callable(item):
+            out = torch.func.vmap(item)(tl.reshape(-1))
+            return out.reshape(tl.shape + out.shape[1:])
+        return item.expand(tl.shape + item.shape)
+
+
 @dataclasses.dataclass(frozen=True)
-class LinearSDE:
+class LinearSDE(_Model):
     """Linear-affine model (eq. 12), possibly time-varying via callables.
 
     ``F, c, H, r, Q, R`` are each a constant tensor or a callable of a
@@ -49,39 +87,49 @@ class LinearSDE:
     m0: Tensor
     P0: Tensor
 
-    @property
-    def nx(self) -> int:
-        return self.m0.shape[-1]
-
-    @property
-    def ny(self) -> Optional[int]:
-        """Measurement dimension, or ``None`` when ``R`` is a callable."""
-        return None if callable(self.R) else self.R.shape[-1]
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.m0.dtype
-
-    def to(self, device=None, dtype=None) -> "LinearSDE":
-        """Copy with every constant tensor moved/cast (callables are kept)."""
-        def move(a):
-            return a if callable(a) else a.to(device=device, dtype=dtype)
-
-        return LinearSDE(*(move(getattr(self, f.name))
-                           for f in dataclasses.fields(self)))
-
-    @staticmethod
-    def _eval(item: Coef, tl: Tensor) -> Tensor:
-        if callable(item):
-            out = torch.func.vmap(item)(tl.reshape(-1))
-            return out.reshape(tl.shape + out.shape[1:])
-        return item.expand(tl.shape + item.shape)
-
     def grids(self, ts: Tensor):
         """All coefficients on the left points of the N intervals."""
         tl = ts[:-1]
         return tuple(self._eval(a, tl)
                      for a in (self.F, self.c, self.H, self.r, self.Q, self.R))
+
+
+@dataclasses.dataclass(frozen=True)
+class NonlinearSDE(_Model):
+    """Nonlinear model (eq. 1): drift ``f(x, t)``, observation ``h(x, t)``.
+
+    ``f`` and ``h`` are torch functions of one state ``x`` ``(nx,)`` and a
+    scalar time tensor ``t`` that ``torch.func.vmap`` and
+    ``torch.func.jacfwd`` can transform (no in-place writes, no
+    ``.item()``); grids evaluate them at every point in one ``vmap``.
+    ``Q``/``R`` are constant tensors or callables of t, as in
+    :class:`LinearSDE`.
+    """
+
+    f: Callable[[Tensor, Tensor], Tensor]
+    h: Callable[[Tensor, Tensor], Tensor]
+    Q: Coef
+    R: Coef
+    m0: Tensor
+    P0: Tensor
+
+    def linearise(self, xbar: Tensor, ts: Tensor):
+        """First-order Taylor expansion about a nominal trajectory
+        ``xbar`` ``(N+1, *R, nx)``: grid tensors (F, c, H, r) with
+        ``f ~= F x + c`` and ``h ~= H x + r`` at each interval left point
+        (section 4.4)."""
+        tl, xb = ts[:-1], xbar[:-1]
+        F, c = taylor_linearize_grid(self.f, xb, tl)
+        H, r = taylor_linearize_grid(self.h, xb, tl)
+        return F, c, H, r
+
+    def divergence_gradient(self, xbar: Tensor, ts: Tensor) -> Tensor:
+        """grad_x (div f)(xbar, t) at the interval left points: the
+        linearised Onsager-Machlup divergence correction."""
+        return vmap_points(torch.func.grad(self._div_f), xbar[:-1], ts[:-1])
+
+    def _div_f(self, x: Tensor, t: Tensor) -> Tensor:
+        return torch.trace(torch.func.jacfwd(self.f)(x, t))
 
 
 def time_grid(t0: float, tf: float, num_steps: int,
@@ -141,6 +189,44 @@ def grid_lqt_from_linear(
                           measurement_mask=measurement_mask, prior=prior)
 
 
+def grid_lqt_from_nonlinear(
+    model: NonlinearSDE, ts: Tensor, y: Tensor, xbar: Tensor,
+    divergence_correction: bool = False,
+    measurement_mask: Optional[Tensor] = None,
+    prior: Optional[Prior] = None,
+    linearization=None,
+) -> GridLQT:
+    """Linearise the nonlinear model about ``xbar`` ``(N+1, *R, nx)`` and
+    time-reverse into the grid LQT problem.
+
+    ``linearization`` selects the strategy (``None``/"taylor" = the
+    Jacobian path).  Strategies with a residual covariance (the
+    reference's sigma-point regressions, which fold it into ``Q``/``R``)
+    are not ported yet and raise.
+    """
+    if ts.shape[1:] != y.shape[1:-1]:
+        raise ValueError(
+            f"ts {tuple(ts.shape)} and y {tuple(y.shape)} must share the "
+            f"record dims after the time axis")
+    if get_linearization(linearization).has_residual:
+        raise NotImplementedError(
+            "linearisations with a residual covariance (sigma-point "
+            "regression) are not ported yet; see ROADMAP.md, queue 1")
+    tl = ts[:-1]
+    F, c, H, r = model.linearise(xbar, ts)
+    Q = model._eval(model.Q, tl)
+    R = model._eval(model.R, tl)
+    dt = ts[1:] - ts[:-1]
+    lin = None
+    if divergence_correction:
+        # Onsager-Machlup adds +1/2 int div f dt; linearised about xbar the
+        # phi-dependent part is  1/2 g(xbar)^T phi with g = grad div f.
+        lin = 0.5 * model.divergence_gradient(xbar, ts)
+    return build_grid_lqt(F, c, H, r, Q, R, y, dt, model.m0, model.P0,
+                          lin=lin, measurement_mask=measurement_mask,
+                          prior=prior)
+
+
 # ---------------------------------------------------------------------------
 # Simulation + cost functional
 # ---------------------------------------------------------------------------
@@ -188,6 +274,48 @@ def simulate_linear(model: LinearSDE, ts: Tensor,
     return xs, y
 
 
+def _factor_once(item: Coef, grid: Tensor, factor) -> Tensor:
+    """``factor`` of a noise matrix on the grid: a constant one is factored
+    once and broadcast (a batched factorisation over the whole grid can
+    exceed the GPU solver's batch limits)."""
+    if callable(item):
+        return factor(grid)
+    return factor(item).expand(grid.shape)
+
+
+def simulate_nonlinear(model: NonlinearSDE, ts: Tensor,
+                       generator: torch.Generator):
+    """Euler-Maruyama simulation of (1) + discretised measurements.
+
+    ``ts`` ``(N+1, *R)`` simulates one record per entry of ``*R``; returns
+    ``xs`` ``(N+1, *R, nx)`` and ``y`` ``(N, *R, ny)``.  Draws come from
+    ``generator``, which must live on ``ts``'s device; the drift is
+    evaluated for all records at once at each step.
+    """
+    dt = ts[1:] - ts[:-1]
+    tl = ts[:-1]
+    Q = model._eval(model.Q, tl)
+    R = model._eval(model.R, tl)
+    N, lead = dt.shape[0], tuple(ts.shape[1:])
+    kw = dict(generator=generator, dtype=model.dtype, device=ts.device)
+    x = model.m0 + _mv(torch.linalg.cholesky(model.P0),
+                       torch.randn(lead + (model.nx,), **kw))
+    eps = torch.randn((N,) + lead + (model.nx,), **kw)
+    w = torch.sqrt(dt)[..., None] * _mv(
+        _factor_once(model.Q, Q, _psd_sqrt), eps)
+    dtv = dt[..., None]
+    xs = [x]
+    for k in range(N):
+        x = x + dtv[k] * vmap_points(model.f, x, tl[k]) + w[k]
+        xs.append(x)
+    xs = torch.stack(xs, dim=0)
+    hx = vmap_points(model.h, xs[1:], tl)
+    noise = torch.randn(hx.shape, **kw)
+    Rch = _factor_once(model.R, R, torch.linalg.cholesky)
+    y = hx + _mv(Rch, noise) / torch.sqrt(dtv)
+    return xs, y
+
+
 def _quad(v: Tensor, M: Tensor) -> Tensor:
     """Batched quadratic form ``v^T M v``."""
     return (v * _mv(M, v)).sum(-1)
@@ -219,6 +347,36 @@ def om_cost_linear(model: LinearSDE, ts: Tensor, y: Tensor, x: Tensor,
     if measurement_mask is not None:
         meas = meas * measurement_mask
     return cost + 0.5 * torch.sum(dt * meas, dim=0)
+
+
+def om_cost_nonlinear(
+    model: NonlinearSDE, ts: Tensor, y: Tensor, x: Tensor,
+    divergence_correction: bool = False,
+    measurement_mask: Optional[Tensor] = None,
+    prior: Optional[Prior] = None,
+) -> Tensor:
+    """The true (nonlinear) discretised Onsager-Machlup cost of ``x``
+    ``(N+1, *R, nx)``, one value per record, with the backward-Euler
+    quadrature of the solvers.  ``Q`` and ``R`` are inverted as the
+    reference does (``inv``; a constant one once)."""
+    dt = ts[1:] - ts[:-1]
+    tl = ts[:-1]
+    Q = model._eval(model.Q, tl)
+    R = model._eval(model.R, tl)
+    cost = _prior_cost(model, x[0], prior)
+    xr = x[1:]
+    resid = (x[1:] - x[:-1]) / dt[..., None] - vmap_points(model.f, xr, tl)
+    Qinv = _factor_once(model.Q, Q, torch.linalg.inv)
+    cost = cost + 0.5 * torch.sum(dt * _quad(resid, Qinv), dim=0)
+    meas = _quad(y - vmap_points(model.h, xr, tl),
+                 _factor_once(model.R, R, torch.linalg.inv))
+    if measurement_mask is not None:
+        meas = meas * measurement_mask
+    cost = cost + 0.5 * torch.sum(dt * meas, dim=0)
+    if divergence_correction:
+        cost = cost + 0.5 * torch.sum(
+            dt * vmap_points(model._div_f, xr, tl), dim=0)
+    return cost
 
 
 def om_cost_grid(grid: GridLQT, x: Tensor) -> Tensor:

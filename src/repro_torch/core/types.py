@@ -114,7 +114,10 @@ class Solution:
     Unlike :class:`MAPSolution`, fields follow the estimation surface's
     layout: stacked problems carry the record axis FIRST
     (``x`` ``(B, N+1, nx)``), single problems none.  ``cost`` is the
-    discretised Onsager-Machlup cost of ``x``.
+    discretised Onsager-Machlup cost of ``x``.  For nonlinear solves
+    ``cost_trace`` holds the cost after each linearise-and-solve pass
+    (``cost == cost_trace[..., -1]``) and ``step_norms`` the RMS update of
+    each pass.
     """
 
     x: Tensor                       # (..., N+1, nx) MAP trajectory
@@ -122,3 +125,5 @@ class Solution:
     v: Tensor                       # (..., N+1, nx)
     cov: Optional[Tensor] = None    # (..., N+1, nx, nx)
     cost: Optional[Tensor] = None   # (...,) Onsager-Machlup cost
+    cost_trace: Optional[Tensor] = None   # (..., iterations)
+    step_norms: Optional[Tensor] = None   # (..., iterations)

@@ -399,13 +399,20 @@ def test_parallel_carries_record_dims(wiener_case):
 
 @pytest.mark.parametrize("mode", ["euler", "rk4"])
 def test_unported_modes_raise(wiener_case, mode):
-    _, tg = _grids(wiener_case)
-    for call in (lambda: tparallel.parallel_rts(tg, NSUB, mode),
-                 lambda: tsequential.sequential_rts(tg, mode)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    """The ODE modes, unported in the first slice, now solve and match the
+    reference (``tests/test_torch_modes.py`` holds them at every level);
+    an unknown mode still raises."""
+    jg, tg = _grids(wiener_case)
+    _close(tparallel.parallel_rts(tg, NSUB, mode),
+           jax.jit(functools.partial(jparallel.parallel_rts, nsub=NSUB,
+                                     mode=mode))(jg))
+    _close(tsequential.sequential_rts(tg, mode),
+           jax.jit(functools.partial(jsequential.sequential_rts,
+                                     mode=mode))(jg))
     with pytest.raises(ValueError, match="unknown element mode"):
         tparallel.parallel_rts(tg, NSUB, "bogus")
+    with pytest.raises(ValueError, match="unknown integrator"):
+        tsequential.sequential_rts(tg, "bogus")
 
 
 def test_grid_rejects_mismatched_record_dims(wiener_case):

@@ -1,4 +1,5 @@
-"""Tests of the port that need a CUDA card: the LM kernels on the card.
+"""Tests of the port that need a CUDA card: the LM kernels on the card,
+and the nonlinear estimation path through the ``lqt_combine`` kernel.
 
 They skip without a card.  This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -14,9 +15,20 @@ import pytest
 import torch
 
 from repro_torch.config import get_config
+from repro_torch.configs.coordinated_turn import CoordinatedTurnConfig
+from repro_torch.core import (
+    Estimator,
+    IteratedOptions,
+    KernelOptions,
+    ParallelOptions,
+    Problem,
+    simulate_nonlinear,
+    time_grid,
+)
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.lqt_combine import kernel as lqt_kernel
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.models import transformer
 from repro_torch.serving import Request, ServeEngine
@@ -167,3 +179,34 @@ def test_ssd_dispatch_on_card(card):
         ssd_kernel.ssd_chunked(l, dtx, Bm, Cm, chunk=64)
     assert ssd_kernel.launch_count("mma") == ssd_kernel.launch_count("simt") == 1
     assert ssd_kernel.launch_count() == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.filterwarnings(
+    "ignore:`torch.jit.script` is deprecated:DeprecationWarning")
+def test_nonlinear_kernel_path_matches_plain_on_card(card):
+    """The iterated smoother on the coordinated turn (N = 640, euler, 3
+    passes, two records) through ``parallel_kernel`` launches
+    ``lqt_combine`` at nx = 5 (the scan tree over 65 elements, 11 launches
+    per pass) and agrees with ``parallel_rts`` on the card to 1e-8
+    (``chip_smoke.py`` runs the paper's full size).  The filter: torch's
+    forward-mode AD loads its decompositions through ``torch.jit.script``,
+    which some torch builds mark deprecated."""
+    cfg = CoordinatedTurnConfig()
+    model = cfg.model(device="cuda")
+    ts = time_grid(cfg.t0, cfg.tf, 640, device="cuda")
+    _, y = simulate_nonlinear(model, ts[:, None].expand(-1, 2), card)
+    p = Problem.stacked(model, ts, y.movedim(1, 0))
+    sols = {}
+    for method, inner in (("parallel_kernel", KernelOptions(mode="euler")),
+                          ("parallel_rts", ParallelOptions(mode="euler"))):
+        before = lqt_kernel.launch_count()
+        sols[method] = Estimator(model, method=method, options=IteratedOptions(
+            inner=inner, iterations=3)).solve(p)
+        torch.cuda.synchronize()
+        launched = lqt_kernel.launch_count() - before
+        assert launched == (33 if method == "parallel_kernel" else 0)
+    k, r = sols["parallel_kernel"], sols["parallel_rts"]
+    assert k.x.device.type == "cuda" and bool(torch.isfinite(k.x).all())
+    assert float((k.x - r.x).abs().max()) < 1e-8
+    assert bool((k.cost_trace[:, -1] < k.cost_trace[:, 0]).all())
