@@ -5,9 +5,10 @@
 
 Phases, each of which fails the run on any miss:
 
-1. build      -- compile the five CUDA kernel libraries from the sources
+1. build      -- compile the six CUDA kernel libraries from the sources
                  in this checkout (one ``nvcc`` per source, all at once,
-                 for ``sm_90a`` into ``build/``): ``lqt_combine``, and two
+                 for ``sm_90a`` into ``build/``): ``lqt_combine`` (pairwise),
+                 ``lqt_scan`` (a whole scan in one launch), and two
                  variants each of ``flash_attention`` and ``ssd_chunked``
                  (``mma``: bf16 tensor cores; ``simt``: float32 CUDA
                  cores), with ptxas's register and spill counts per
@@ -16,8 +17,11 @@ Phases, each of which fails the run on any miss:
 2. kernels    -- each kernel against its plain PyTorch version on the
                  card: ``lqt_combine`` on random element pairs with PSD
                  C/J, nx in {2, 4, 5, 8}, lane counts {1, 7, 4097, 2**20},
-                 float32 and float64, then ``kernel_suffix_scan`` against
-                 the plain suffix scan; ``flash_attention`` and
+                 float32 and float64; the scan kernel against the plain
+                 scan at n in {1, 2, 17, 513, 2049}, records {1, 64},
+                 nx in {4, 5}, float32 and float64, both directions, and
+                 ``kernel_suffix_scan`` against the core suffix scan;
+                 ``flash_attention`` and
                  ``ssd_chunked`` in float32 and bfloat16 on the reference's
                  small test cases and at hymba-1.5b's prefill shapes, plus
                  bfloat16 cases for the tensor-core tiling, each case
@@ -28,25 +32,29 @@ Phases, each of which fails the run on any miss:
                  blocks x nsub = 10 (N = 20480) in float64, for one record
                  and for 64 stacked records, held against the port's
                  ``parallel_rts`` on the card and its ``sequential_rts`` on
-                 the CPU, with the launch counts of ``lqt_combine``, the
-                 median solve time and one profiled solve per cell;
+                 the CPU, with the launch count of the scan kernel (one
+                 per solve's backward scan), the median solve time and one
+                 profiled solve per cell;
 3b. nonlinear -- the paper's Fig.-2 experiment: the iterated Taylor
                  smoother (5 passes) on the coordinated-turn model
                  (section 5.2) at T = 512 blocks x nsub = 10 (N = 5120) in
                  ``mode="euler"``, float64, one record and 64 stacked
                  records from the port's ``simulate_nonlinear``:
-                 ``parallel_kernel`` (``lqt_combine`` at nx = 5) against
+                 ``parallel_kernel`` (the scan kernel at nx = 5, one launch
+                 per pass) against
                  ``parallel_rts`` and ``sequential_rts`` on the card, the
                  two-filter smoother (``discrete``) against ``parallel_rts``
                  (``discrete``), the cost traces, median solve times of the
                  three methods, one profiled solve per cell, and the solve in
                  float32 (its distance from float64 printed, not gated);
-3c. lqt_combine timing -- the kernel at both estimation paths' launch
-                 shapes: CUDA events around a CUDA-graph replay of
-                 back-to-back launches (device time), around the same
-                 launches called eagerly (host launch cost included), and
-                 the profiler's summed kernel time, beside the plain
-                 version and the bound;
+3c. lqt timing -- the scan kernel at both estimation paths' scans
+                 (CUDA events around a CUDA-graph replay of back-to-back
+                 scans, eager calls beside), its bound, the per-launch bound
+                 of the tree's combines it replaces, the plain scan, and a
+                 depth sweep over one record (its slope is the latency per
+                 tree level); the pairwise kernel at the launch shapes the
+                 per-level scan had (graph replay, eager calls, profiler),
+                 beside its plain version and bound;
 4. serving    -- ``ServeEngine.generate`` on hymba-1.5b at full width in
                  bfloat16 (random weights from a seeded generator): 16
                  requests of 2048 prompt tokens and 32 new tokens in two
@@ -108,6 +116,11 @@ NL_KERNEL_TOL, NL_SEQ_TOL, NL_TF_TOL = 1e-8, 5e-2, 1e-5
 # the conditioning of M = I + C1 J2 (at most a few hundred for these
 # operands), so float64 stays far below 1e-10 and float32 below 1e-3.
 KERNEL_RTOL = {torch.float64: 1e-10, torch.float32: 1e-3}
+# scan kernel vs plain scan, normwise: the same tree and combine order, each
+# combine differing by the combine's round-off (above), compounded over the
+# tree's levels
+SCAN_RTOL = {torch.float64: 1e-9, torch.float32: 1e-3}
+SCAN_SWEEP = (2, 3, 5, 9, 17, 33, 65, 129, 257, 513, 1025, 2049)
 
 # hymba-1.5b serving cell: two waves of 8 prompts of 2048 tokens.  2048 is
 # a multiple of the 1024 window, the 256 SSD chunk and chunked_mha's 512
@@ -128,7 +141,7 @@ SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.04}
 # by float32 sums in another order through 32 layers.
 CROSS_RTOL = 1e-3
 # name fragments of the port's kernels in a profiler trace
-PORT_KERNELS = ("flash_attn", "ssd_", "lqt_combine")
+PORT_KERNELS = ("flash_attn", "ssd_", "lqt_combine", "lqt_scan")
 
 
 def log(msg: str) -> None:
@@ -162,6 +175,24 @@ def random_pairs(nx, B, dtype, g):
     return side(), side()
 
 
+def random_elems(n, R, nx, dtype, g):
+    """Natural-layout elements ``(n, nx, nx)`` (R = 1) or ``(n, R, nx, nx)``
+    with PSD C and J."""
+    sh = (n,) if R == 1 else (n, R)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device="cuda", dtype=torch.float64)
+
+    def psd():
+        A = r(*sh, nx, nx)
+        return (A @ A.transpose(-1, -2) / nx
+                + 0.1 * torch.eye(nx, device="cuda", dtype=torch.float64))
+
+    from repro_torch.core.types import LQTElement
+    return LQTElement(*(x.to(dtype) for x in (
+        r(*sh, nx, nx) * 0.6, r(*sh, nx), psd(), r(*sh, nx), psd())))
+
+
 def compare(got, want):
     """(max abs error, normwise relative error) over the output tuple."""
     abs_err = max(float((a.double() - b.double()).abs().max()) for a, b in
@@ -182,6 +213,12 @@ def combine_bytes(nx: int, itemsize: int) -> int:
     """Each input read once, each output written once, per pair."""
     values = 2 * (3 * nx * nx + 2 * nx) + (3 * nx * nx + 2 * nx)
     return values * itemsize
+
+
+def scan_bytes(n: int, R: int, nx: int, itemsize: int) -> int:
+    """A whole scan: each input element read once, each output written
+    once."""
+    return 2 * n * R * (3 * nx * nx + 2 * nx) * itemsize
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -219,6 +256,19 @@ def graph_time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def scan_time_ms(fn, reps: int) -> tuple:
+    """``(ms, method)``: the graph-replay time of ``fn`` where a CUDA graph
+    can capture it (``"graph"``), else CUDA events around back-to-back eager
+    calls (``"eager"``, host launch cost included), with a line saying why."""
+    try:
+        return graph_time_ms(fn, reps), "graph"
+    except Exception as exc:               # capture refused on this CUDA
+        torch.cuda.synchronize()
+        log(f"  CUDA-graph capture refused ({type(exc).__name__}: "
+            f"{str(exc)[:120]}); timing eager calls")
+        return cuda_time_ms(fn, reps), "eager"
 
 
 def device_time_ms(fn, reps: int) -> float:
@@ -405,6 +455,39 @@ def check_lqt(g, lqt_kernel, lqt_ref) -> None:
         raise AssertionError("kernel_suffix_scan disagrees with suffix_scan")
 
 
+def check_scan(g, lqt_scan, lqt_ref) -> None:
+    """The scan kernel against the plain scan (the same tree in the kernel's
+    schedule, pivoted solves), one launch per call."""
+    for dtype in (torch.float64, torch.float32):
+        for nx in (4, 5):
+            for n in (1, 2, 17, N_BLOCKS // 4 + 1, N_BLOCKS + 1):
+                worst, cases = 0.0, 0
+                for R in (1, RECORDS):
+                    for rev in (False, True):
+                        e = random_elems(n, R, nx, dtype, g)
+                        before = lqt_scan.launch_count()
+                        got = lqt_scan.lqt_scan(e, reverse=rev)
+                        launched = lqt_scan.launch_count() - before
+                        want = lqt_ref.lqt_scan_ref(e, reverse=rev)
+                        torch.cuda.synchronize()
+                        _, rel = compare(got, want)
+                        finite = all(bool(torch.isfinite(x).all())
+                                     for x in got)
+                        if not (launched == 1 and finite
+                                and rel < SCAN_RTOL[dtype]):
+                            raise AssertionError(
+                                f"lqt_scan {dtype} nx={nx} n={n} R={R} "
+                                f"rev={rev}: {launched} launches, normwise "
+                                f"rel err {rel:.3e}, finite {finite}")
+                        worst, cases = max(worst, rel), cases + 1
+                        del e, got, want
+                log(f"  lqt_scan {str(dtype)[6:]} nx={nx} n={n}: {cases} cases"
+                    f" (records 1 and {RECORDS}, both directions), one launch "
+                    f"each, worst normwise rel err {worst:.3e} (tol "
+                    f"{SCAN_RTOL[dtype]:.0e}) ok")
+    torch.cuda.empty_cache()
+
+
 # (B, Hq, Hkv, Lq, Lk, D, causal, window): the reference's five test cases,
 # two ragged-edge cases, and hymba-1.5b's prefill, in both dtypes; then
 # bfloat16 cases for the tensor-core kernel's tiling: D in {16, 32, 128},
@@ -586,9 +669,9 @@ def median_solve_ms(est, problem, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def estimation_path(lqt_kernel) -> dict:
-    """Returns the launch count and launch shapes of ``lqt_combine`` on the
-    path."""
+def estimation_path(lqt_kernel, lqt_scan) -> dict:
+    """Returns the scan kernel's launch count and scans (elements, records)
+    on the path, and the launch shapes the per-level scan had."""
     from repro_torch.configs.wiener_velocity import WienerVelocityConfig
     from repro_torch.core import (
         Estimator,
@@ -622,12 +705,17 @@ def estimation_path(lqt_kernel) -> dict:
                       device="cpu")
 
     lqt_kernel.reset_launch_count()
+    lqt_scan.reset_launch_count()
     sols = {k: est_k.solve(p) for k, p in problems.items()}
     torch.cuda.synchronize()
-    launches = lqt_kernel.launch_count()
-    log(f"main path launches: lqt_combine {launches}")
-    if launches <= 0:
-        raise AssertionError("the main path did not launch lqt_combine")
+    launches = lqt_scan.launch_count()
+    log(f"main path launches: lqt_scan {launches} (one per backward scan), "
+        f"lqt_combine {lqt_kernel.launch_count()}")
+    if launches != len(problems) or lqt_kernel.launch_count():
+        raise AssertionError(f"expected {len(problems)} lqt_scan launches "
+                             f"and no lqt_combine launch on the main path, "
+                             f"counted {launches} and "
+                             f"{lqt_kernel.launch_count()}")
 
     for name, p in problems.items():
         sol = sols[name]
@@ -669,19 +757,19 @@ def estimation_path(lqt_kernel) -> dict:
 
     shapes = (scan_lane_counts(N_BLOCKS + 1, 1)
               + scan_lane_counts(N_BLOCKS + 1, RECORDS))
-    if len(shapes) != launches:
-        raise AssertionError(f"expected {len(shapes)} launches on the "
-                             f"main path, counted {launches}")
-    return {"launches": launches, "shapes": shapes, "nx": 4}
+    return {"launches": launches, "shapes": shapes, "nx": 4,
+            "scans": [(N_BLOCKS + 1, 1), (N_BLOCKS + 1, RECORDS)],
+            "pairwise_launches": lqt_kernel.launch_count()}
 
 
 # ---------------------------------------------------------------------------
 # 3b. nonlinear path: the iterated smoother on the coordinated turn
 # ---------------------------------------------------------------------------
 
-def nonlinear_path(lqt_kernel) -> dict:
-    """The paper's Fig.-2 cell through ``Estimator.solve``; returns the
-    launch count and launch shapes of ``lqt_combine`` on the path."""
+def nonlinear_path(lqt_kernel, lqt_scan) -> dict:
+    """The paper's Fig.-2 cell through ``Estimator.solve``; returns the scan
+    kernel's launch count and scans on the path, and the launch shapes the
+    per-level scan had."""
     from repro_torch.configs.coordinated_turn import CoordinatedTurnConfig
     from repro_torch.core import (
         Estimator,
@@ -727,15 +815,19 @@ def nonlinear_path(lqt_kernel) -> dict:
                  TwoFilterOptions(nsub=nsub, mode="discrete"))
 
     lqt_kernel.reset_launch_count()
+    lqt_scan.reset_launch_count()
     sols = {k: ests["parallel_kernel"].solve(p) for k, p in problems.items()}
     torch.cuda.synchronize()
-    launches = lqt_kernel.launch_count()
-    log(f"nonlinear path launches: lqt_combine {launches}")
+    launches = lqt_scan.launch_count()
+    log(f"nonlinear path launches: lqt_scan {launches} (one per pass and "
+        f"record layout), lqt_combine {lqt_kernel.launch_count()}")
     shapes = NL_ITERS * (scan_lane_counts(NL_BLOCKS + 1, 1)
                          + scan_lane_counts(NL_BLOCKS + 1, RECORDS))
-    if launches != len(shapes):
-        raise AssertionError(f"nonlinear path: {launches} lqt_combine "
-                             f"launches, expected {len(shapes)}")
+    scans = NL_ITERS * [(NL_BLOCKS + 1, 1), (NL_BLOCKS + 1, RECORDS)]
+    if launches != len(scans) or lqt_kernel.launch_count():
+        raise AssertionError(f"nonlinear path: {launches} lqt_scan and "
+                             f"{lqt_kernel.launch_count()} lqt_combine "
+                             f"launches, expected {len(scans)} and 0")
 
     def max_dx(a, b):
         return float((a.x - b.x).abs().max())
@@ -803,25 +895,157 @@ def nonlinear_path(lqt_kernel) -> dict:
             f"{dx:.3e}, finite {bool(torch.isfinite(sol32.x).all())} "
             f"(reported, not gated); solve median "
             f"{median_solve_ms(est32, p32):.3f} ms")
-    return {"launches": launches, "shapes": shapes, "nx": 5}
+    return {"launches": launches, "shapes": shapes, "nx": 5, "scans": scans,
+            "pairwise_launches": lqt_kernel.launch_count()}
 
 
 # ---------------------------------------------------------------------------
-# 3c. lqt_combine at the estimation paths' launch shapes
+# 3c. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
 # ---------------------------------------------------------------------------
 
-def lqt_timing(g, lqt_kernel, lqt_ref, paths: dict) -> dict:
-    """The report row of ``lqt_combine``: its time summed over every path's
-    launches (CUDA events around a CUDA-graph replay of back-to-back
-    launches), beside the same launches called eagerly, the profiler's
-    summed kernel time, the plain version and the bound; per path too."""
+def per_level_suffix_scan(elems):
+    """The per-level design the scan kernel replaces, as the port ran it
+    before: lane-major copies of the elements, a flip, one pairwise-kernel
+    launch per tree level over dense copies of the level's slices
+    (``core.pscan.associative_scan`` over the lane axis), interleaves, and
+    the flip and layout back."""
+    from repro_torch.core.pscan import associative_scan
+    from repro_torch.kernels.lqt_combine import ops
+
+    lanes = tuple(torch.flip(a, (-1,)) for a in ops._to_lanes(elems))
+    out = associative_scan(
+        lambda a, b: ops._combine_lanes(b, a, block_size=128), lanes,
+        axis=-1)
+    return ops._from_lanes(tuple(torch.flip(a, (-1,)) for a in out))
+
+
+def scan_timing(g, lqt_scan, lqt_ref, paths: dict) -> dict:
+    """The report row of ``lqt_scan``: its time summed over every path's
+    scans (CUDA events around a CUDA-graph replay of back-to-back scans, or
+    around eager calls where capture is refused), beside eager calls, the
+    plain scan, its own bound and the summed per-launch bound of the tree's
+    combines (the per-level design's yardstick); per path too.  Then a depth
+    sweep over one record."""
+    row = {"name": "lqt_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/lqt_combine/csrc/lqt_scan.cu",
+           "replaces": "src/repro/kernels/lqt_combine/kernel.py:115",
+           "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "bound_by": None, "library_ms": None,
+           "eager_ms": 0.0, "per_combine_bound_ms": 0.0, "timing": None,
+           "paths": {}}
+    methods = set()
+    for path, info in paths.items():
+        nx = info["nx"]
+        t = dict.fromkeys(("ms", "eager_ms", "plain_ms", "bound_ms",
+                           "per_level_ms", "per_level_eager_ms",
+                           "max_abs_err"), 0.0)
+        bound_by = set()
+        for n, R in sorted(set(info["scans"])):
+            mult = info["scans"].count((n, R))
+            e = random_elems(n, R, nx, torch.float64, g)
+            got = lqt_scan.lqt_scan(e, reverse=True)
+            want = lqt_ref.lqt_scan_ref(e, reverse=True)
+            err = compare(got, want)[0]
+            grid = dict(lqt_scan.last_launch)
+
+            def kern():
+                return lqt_scan.lqt_scan(e, reverse=True)
+
+            def plain():
+                return lqt_ref.lqt_scan_ref(e, reverse=True)
+
+            def per_level():
+                return per_level_suffix_scan(e)
+
+            ms, how = scan_time_ms(kern, 20)
+            eager = cuda_time_ms(kern, 20)
+            plain_ms = cuda_time_ms(plain, 3)
+            old_ms, old_how = scan_time_ms(per_level, 5)
+            old_eager = cuda_time_ms(per_level, 5)
+            combines = sum(scan_lane_counts(n, R))
+            nbytes = scan_bytes(n, R, nx, 8)
+            b_ms, b_by = bound(nbytes, combines * combine_flops(nx),
+                               torch.float64)
+            log(f"  {path}: scan of {n} elements x {R} records (nx={nx}, "
+                f"float64, {combines} combines), x{mult} on the path: "
+                f"{ms:.5f} ms ({how}; eager calls {eager:.5f} ms), plain "
+                f"scan {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+                f"{nbytes / 1e6:.2f} MB, "
+                f"{combines * combine_flops(nx) / 1e6:.1f} MFLOP), "
+                f"{b_ms / ms:.3f} of the bound; grid {grid}; the per-level "
+                f"design (launches and copies) {old_ms:.5f} ms ({old_how}; "
+                f"eager calls {old_eager:.5f} ms)")
+            methods.add(how)
+            bound_by.add(b_by)
+            t["ms"] += mult * ms
+            t["eager_ms"] += mult * eager
+            t["plain_ms"] += mult * plain_ms
+            t["per_level_ms"] += mult * old_ms
+            t["per_level_eager_ms"] += mult * old_eager
+            t["bound_ms"] += mult * b_ms
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            del e, got, want
+        shapes = info["shapes"]
+        pc_ms, _ = bound(sum(B * combine_bytes(nx, 8) for B in shapes),
+                         sum(B * combine_flops(nx) for B in shapes),
+                         torch.float64)
+        by = "bytes" if "bytes" in bound_by else "operations"
+        log(f"    {path} path, {info['launches']} scans: {t['ms']:.4f} ms "
+            f"(eager calls {t['eager_ms']:.4f} ms), plain {t['plain_ms']:.4f}"
+            f" ms, bound {t['bound_ms']:.5f} ms ({by}; "
+            f"{t['bound_ms'] / t['ms']:.3f} reached), the per-level design's "
+            f"bound (its {len(shapes)} launches' combines) {pc_ms:.5f} ms; "
+            f"the per-level design itself {t['per_level_ms']:.4f} ms (eager "
+            f"calls {t['per_level_eager_ms']:.4f} ms)")
+        row["paths"][path] = {"launches": info["launches"], "ms": t["ms"],
+                              "eager_ms": t["eager_ms"],
+                              "plain_ms": t["plain_ms"],
+                              "bound_ms": t["bound_ms"], "bound_by": by,
+                              "per_combine_bound_ms": pc_ms,
+                              "per_level_ms": t["per_level_ms"],
+                              "per_level_eager_ms": t["per_level_eager_ms"]}
+        row["launches"] += info["launches"]
+        row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+        for k in ("ms", "eager_ms", "plain_ms", "bound_ms"):
+            row[k] += t[k]
+        row["per_combine_bound_ms"] += pc_ms
+        row["bound_by"] = ("bytes" if "bytes" in (row["bound_by"], by)
+                           else by)
+    row["timing"] = "+".join(sorted(methods))
+    for nx in (4, 5):
+        pts = []
+        for n in SCAN_SWEEP:
+            e = random_elems(n, 1, nx, torch.float64, g)
+            ms, how = scan_time_ms(lambda: lqt_scan.lqt_scan(e, reverse=True),
+                                   30)
+            pts.append((n, ms))
+        levels = np.array([n.bit_length() - 1 for n, _ in pts], float)
+        slope, icept = np.polyfit(levels, np.array([ms for _, ms in pts]), 1)
+        log(f"  depth sweep, one record, nx={nx}, float64 ({how}): "
+            + ", ".join(f"n={n} {ms:.5f}" for n, ms in pts)
+            + f" ms; least-squares slope {slope * 1e3:.3f} us per tree level"
+            f" (a down and an up phase), intercept {icept * 1e3:.3f} us")
+        row[f"sweep_us_per_level_nx{nx}"] = slope * 1e3
+    return row
+
+
+def combine_timing(g, lqt_kernel, lqt_ref, paths: dict) -> dict:
+    """The report row of the pairwise ``lqt_combine``: the paths now run
+    their scans through ``lqt_scan``, so its launches there are 0; its time
+    is summed over the launch shapes the per-level scan had on each path
+    (CUDA events around a CUDA-graph replay of back-to-back launches), beside
+    the same launches called eagerly, the profiler's summed kernel time, the
+    plain version and the bound."""
     row = {"name": "lqt_combine", "route": "cuda",
            "source": "src/repro_torch/kernels/lqt_combine/csrc/"
                      "lqt_combine.cu",
            "replaces": "src/repro/kernels/lqt_combine/kernel.py:115",
            "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
            "bound_ms": 0.0, "bound_by": None, "library_ms": None,
-           "eager_ms": 0.0, "profiler_ms": 0.0, "paths": {}}
+           "eager_ms": 0.0, "profiler_ms": 0.0,
+           "note": "off the main paths since the scan kernel runs their "
+                   "scans; timed at the per-level scan's launch shapes",
+           "paths": {}}
     for path, info in paths.items():
         shapes, nx = info["shapes"], info["nx"]
         t = dict.fromkeys(("ms", "eager_ms", "profiler_ms", "plain_ms",
@@ -847,24 +1071,24 @@ def lqt_timing(g, lqt_kernel, lqt_ref, paths: dict) -> dict:
             t["flops"] += mult * B * combine_flops(nx)
             del ops1, ops2, got, want
         b_ms, b_by = bound(t["bytes"], t["flops"], torch.float64)
-        log(f"  {path} path (nx={nx}, float64): {len(shapes)} launches, "
-            f"lanes per launch {sorted(set(shapes))}")
-        log(f"    summed over the path's launches: kernel {t['ms']:.4f} ms "
+        log(f"  {path} path's per-level shapes (nx={nx}, float64): "
+            f"{len(shapes)} launches, lanes per launch {sorted(set(shapes))}")
+        log(f"    summed over those launches: kernel {t['ms']:.4f} ms "
             f"(CUDA events, graph replay; eager calls {t['eager_ms']:.4f} "
             f"ms; profiler {t['profiler_ms']:.4f} ms), plain version "
             f"{t['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}; "
             f"{t['bytes']:.0f} B, {t['flops']:.0f} FLOP): "
             f"{b_ms / t['ms']:.3f} of the bound")
         row["paths"][path] = {
-            "launches": info["launches"], "ms": t["ms"],
+            "launches": info["pairwise_launches"],
+            "per_level_launches": len(shapes), "ms": t["ms"],
             "eager_ms": t["eager_ms"], "profiler_ms": t["profiler_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by}
-        row["launches"] += info["launches"]
+        row["launches"] += info["pairwise_launches"]
         row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
         for k in ("ms", "eager_ms", "profiler_ms", "plain_ms"):
             row[k] += t[k]
         row["bound_ms"] += b_ms
-        # the row's bound is bytes-bound if any path is
         row["bound_by"] = ("bytes" if "bytes" in (row["bound_by"], b_by)
                            else b_by)
     for nx, B in ((5, 65536), (4, 65536), (4, 1024), (4, 1)):
@@ -1164,6 +1388,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.lqt_combine import kernel as lqt_kernel
     from repro_torch.kernels.lqt_combine import ref as lqt_ref
+    from repro_torch.kernels.lqt_combine import scan as lqt_scan
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import transformer
@@ -1174,6 +1399,7 @@ def main() -> int:
 
     phase("build")
     build_all({"lqt_combine": lqt_kernel.build,
+               "lqt_scan": lqt_scan.build,
                **{f"flash_attention {v}": (lambda v=v: fa_kernel.build(v))
                   for v in fa_kernel.VARIANTS},
                **{f"ssd_chunked {v}": (lambda v=v: ssd_kernel.build(v))
@@ -1182,20 +1408,24 @@ def main() -> int:
     phase("kernel vs plain version")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     check_lqt(g, lqt_kernel, lqt_ref)
+    check_scan(g, lqt_scan, lqt_ref)
     errs = {"flash_attention": check_fa(g, fa_kernel, fa_ref),
             "ssd_chunked": check_ssd(g, ssd_kernel, ssd_ref)}
 
     phase("estimation path")
-    paths = {"estimation": estimation_path(lqt_kernel)}
+    paths = {"estimation": estimation_path(lqt_kernel, lqt_scan)}
     torch.cuda.empty_cache()
 
     phase(f"nonlinear path: coordinated turn, {NL_MODE}, {NL_ITERS} "
           f"iterations")
-    paths["nonlinear"] = nonlinear_path(lqt_kernel)
+    paths["nonlinear"] = nonlinear_path(lqt_kernel, lqt_scan)
     torch.cuda.empty_cache()
 
-    phase("lqt_combine timing at the estimation paths' shapes")
-    kernels = [lqt_timing(g, lqt_kernel, lqt_ref, paths)]
+    phase("lqt_scan timing at the estimation paths' scans")
+    kernels = [scan_timing(g, lqt_scan, lqt_ref, paths)]
+    torch.cuda.empty_cache()
+    phase("lqt_combine timing at the per-level scan's launch shapes")
+    kernels.append(combine_timing(g, lqt_kernel, lqt_ref, paths))
     torch.cuda.empty_cache()
 
     phase(f"serving path: {LM_ARCH}, bfloat16, full width")

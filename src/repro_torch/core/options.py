@@ -97,12 +97,12 @@ KERNEL_PRECISIONS = ("default", "float32", "float64")
 class KernelOptions(ParallelOptions):
     """Options of the kernel-backed parallel smoother (``parallel_kernel``).
 
-    ``block_size`` is the number of threads per CUDA block of the combine
-    kernel (one thread per element pair; a multiple of 32, at most 256 so
-    that a block fits the register file at the kernel's register count).
-    ``precision`` is the kernel compute dtype: ``"default"`` keeps the
-    element dtype (float64 runs natively on the card), ``"float32"`` /
-    ``"float64"`` cast the lane-major scan and cast the result back.
+    ``block_size`` is the number of threads per CUDA block of the scan
+    kernel (a multiple of 32, at most 256 so that a block fits the register
+    file at the kernel's register count).  ``precision`` is the kernel
+    compute dtype: ``"default"`` keeps the element dtype (float64 runs
+    natively on the card), ``"float32"`` / ``"float64"`` cast the scan's
+    elements and cast the result back.
     """
 
     block_size: int = 128

@@ -11,9 +11,9 @@ where ``fn(x, y)`` always receives ``x`` as the EARLIER-interval operand.
 PyTorch has no ``associative_scan``, so :func:`associative_scan` writes out
 the recursion of ``jax.lax.associative_scan`` (pair-reduce, odd-scan,
 even-fixup).  Using the same tree keeps the combine ORDER identical to the
-reference package, so float64 results agree to round-off.  The kernel scan
-(``repro_torch.kernels.lqt_combine.ops``) runs the same function over the
-lane axis of its lane-major operands.
+reference package, so float64 results agree to round-off.  The scan kernel
+(``repro_torch.kernels.lqt_combine.scan``) runs the same tree, combine for
+combine, in one launch.
 """
 from __future__ import annotations
 

@@ -78,8 +78,8 @@ def method_names() -> Tuple[str, ...]:
 
 
 def _parallel_kernel_solver(grid: GridLQT, o: KernelOptions) -> MAPSolution:
-    """RTS smoother with the backward scan run by the lane-major CUDA
-    combine kernel (one layout round-trip for the whole multi-level scan).
+    """RTS smoother with the backward scan run by the CUDA scan kernel
+    (the whole tree, every record, in one launch).
 
     The kernel package is imported lazily so ``repro_torch.core`` never
     depends on ``repro_torch.kernels`` at import time.

@@ -3,10 +3,11 @@
 Every kernel of the port is CUDA C++ with a plain C interface, compiled at
 first use for ``sm_90a`` into ``build/repro_torch/`` at the repository
 root (``.gitignore`` lists ``build/``) and loaded with ``ctypes``.  The
-library is named by a hash of the source and the flags, so an edited
-source is rebuilt.  Nothing is compiled while a module is imported, and
-builds of different kernels may run at the same time (each writes its own
-temporary file and renames it into place).
+library is named by a hash of the source, the headers it includes from its
+own directory and the flags, so an edited source or header is rebuilt.
+Nothing is compiled while a module is imported, and builds of different
+kernels may run at the same time (each writes its own temporary file and
+renames it into place).
 """
 from __future__ import annotations
 
@@ -37,15 +38,42 @@ def nvcc() -> str:
                        "source and need the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> list:
+    """The headers ``source`` includes with ``#include "..."`` from its own
+    directory, and theirs, each once, in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        text = todo.pop(0).read_text()
+        for name in _LOCAL_INCLUDE.findall(text):
+            h = source.parent / name
+            if h.is_file() and h not in seen:
+                seen.append(h)
+                todo.append(h)
+    return seen
+
+
+def source_digest(source: Path) -> str:
+    """Hash of the source, its local headers (by name and content) and the
+    flags: the build's name."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def compile_library(name: str, source: Path) -> tuple:
     """Compile ``source`` (if not already built) and load it.
 
     Returns ``(library, info)`` with ``info = {"library", "seconds",
     "cached", "log"}``: the build time (0 when a library of the same
-    source and flags was already built) and ptxas's ``-v`` output.
+    source, headers and flags was already built) and ptxas's ``-v``
+    output.
     """
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(source)
     so = BUILD_DIR / f"lib{name}_{digest}.so"
     log_path = so.with_suffix(".ptxas.txt")
     seconds, cached = 0.0, so.exists()

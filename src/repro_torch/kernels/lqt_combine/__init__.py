@@ -1,6 +1,8 @@
+from . import scan
 from .kernel import build, launch_count, lqt_combine_lanes, reset_launch_count
 from .ops import kernel_prefix_scan, kernel_suffix_scan, lqt_combine_batched
 from .ref import lqt_combine_lanes_ref, lqt_combine_ref, lqt_scan_ref
+from .scan import lqt_scan
 
 __all__ = [
     "build",
@@ -11,6 +13,8 @@ __all__ = [
     "lqt_combine_lanes",
     "lqt_combine_lanes_ref",
     "lqt_combine_ref",
+    "lqt_scan",
     "lqt_scan_ref",
     "reset_launch_count",
+    "scan",
 ]

@@ -2,18 +2,10 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/lqt_combine/kernel.py::lqt_combine_lanes.
-// It computes the same function, not the same blocking: for each of B
-// element pairs (A, b, C, eta, J)_{1,2},
-//
-//   M   = I + C1 J2               (inverted by unpivoted Gauss-Jordan)
-//   A   = A2 M^-1 A1
-//   b   = A2 M^-1 (b1 + C1 eta2) + b2
-//   C   = sym(A2 M^-1 C1 A2^T + C2)
-//   eta = A1^T M^-T (eta2 - J2 b1) + eta1
-//   J   = sym(A1^T M^-T J2 A1 + J1)
-//
-// No pivoting is needed: C1 and J2 are symmetric PSD, so every pivot of
-// I + C1 J2 is >= 1 during elimination (paper section 4.1).
+// It computes the same function, not the same blocking: the eq.-(42)
+// combine of each of B element pairs (A, b, C, eta, J)_{1,2}, with the
+// one-thread-per-pair arithmetic of lqt_combine.cuh (combine_thread), which
+// the whole-scan kernel lqt_scan.cu shares.
 //
 // Layout: lane-major, as on the TPU.  Entry (i, j) of a matrix operand of
 // pair l lives at X[(i * NX + j) * B + l], entry i of a vector at
@@ -34,84 +26,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lqt_combine.cuh"
+
 namespace {
-
-template <int NX, typename T>
-struct Mat {
-  T v[NX][NX];
-};
-
-template <int NX, typename T>
-__device__ __forceinline__ void load_mat(Mat<NX, T>& m, const T* __restrict__ p,
-                                         int64_t B, int64_t l) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) m.v[i][j] = p[(i * NX + j) * B + l];
-}
-
-template <int NX, typename T>
-__device__ __forceinline__ void load_vec(T (&x)[NX], const T* __restrict__ p,
-                                         int64_t B, int64_t l) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = p[i * B + l];
-}
-
-// out = X @ Y, with X read transposed when TX (so M^-T costs nothing).
-template <int NX, typename T, bool TX>
-__device__ __forceinline__ void matmat(Mat<NX, T>& out, const Mat<NX, T>& X,
-                                       const Mat<NX, T>& Y) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int k = 0; k < NX; ++k) {
-      T acc = (TX ? X.v[0][i] : X.v[i][0]) * Y.v[0][k];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) acc += (TX ? X.v[j][i] : X.v[i][j]) * Y.v[j][k];
-      out.v[i][k] = acc;
-    }
-}
-
-// out = X @ Y^T
-template <int NX, typename T>
-__device__ __forceinline__ void matmat_bt(Mat<NX, T>& out, const Mat<NX, T>& X,
-                                          const Mat<NX, T>& Y) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int k = 0; k < NX; ++k) {
-      T acc = X.v[i][0] * Y.v[k][0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) acc += X.v[i][j] * Y.v[k][j];
-      out.v[i][k] = acc;
-    }
-}
-
-// out = X @ x, with X read transposed when TX.
-template <int NX, typename T, bool TX>
-__device__ __forceinline__ void matvec(T (&out)[NX], const Mat<NX, T>& X,
-                                       const T (&x)[NX]) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    T acc = (TX ? X.v[0][i] : X.v[i][0]) * x[0];
-#pragma unroll
-    for (int j = 1; j < NX; ++j) acc += (TX ? X.v[j][i] : X.v[i][j]) * x[j];
-    out[i] = acc;
-  }
-}
-
-// Store sym(X + Y) = 0.5 (X + Y + (X + Y)^T).
-template <int NX, typename T>
-__device__ __forceinline__ void store_sym(T* __restrict__ p, const Mat<NX, T>& X,
-                                          const Mat<NX, T>& Y, int64_t B,
-                                          int64_t l) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j)
-      p[(i * NX + j) * B + l] =
-          T(0.5) * ((X.v[i][j] + Y.v[i][j]) + (X.v[j][i] + Y.v[j][i]));
-}
 
 template <int NX, typename T>
 __global__ void lqt_combine_kernel(
@@ -122,94 +39,15 @@ __global__ void lqt_combine_kernel(
     T* __restrict__ oC, T* __restrict__ oe, T* __restrict__ oJ, int64_t B) {
   const int64_t l = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (l >= B) return;
-
-  // M = I + C1 J2, then Gauss-Jordan: a -> I, inv -> M^-1.
-  Mat<NX, T> c1, j2, a, inv;
-  load_mat(c1, C1, B, l);
-  load_mat(j2, J2, B, l);
-  matmat<NX, T, false>(a, c1, j2);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    a.v[i][i] += T(1);
-#pragma unroll
-    for (int j = 0; j < NX; ++j) inv.v[i][j] = (i == j) ? T(1) : T(0);
-  }
-#pragma unroll
-  for (int k = 0; k < NX; ++k) {
-    const T piv = T(1) / a.v[k][k];
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      a.v[k][j] *= piv;
-      inv.v[k][j] *= piv;
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      if (i == k) continue;
-      const T f = a.v[i][k];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        a.v[i][j] -= f * a.v[k][j];
-        inv.v[i][j] -= f * inv.v[k][j];
-      }
-    }
-  }
-
-  // Vectors: t = b1 + C1 eta2, w = eta2 - J2 b1.
-  T vb1[NX], ve2[NX], t[NX], w[NX], tmp[NX];
-  load_vec(vb1, b1, B, l);
-  load_vec(ve2, e2, B, l);
-  matvec<NX, T, false>(tmp, c1, ve2);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) t[i] = vb1[i] + tmp[i];
-  matvec<NX, T, false>(tmp, j2, vb1);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) w[i] = ve2[i] - tmp[i];
-
-  // Products with M^-1 / M^-T; c1 and j2 die here.
-  Mat<NX, T> MiC1, MtJ2;
-  matmat<NX, T, false>(MiC1, inv, c1);
-  matmat<NX, T, true>(MtJ2, inv, j2);
-  T Mit[NX], Mtw[NX];
-  matvec<NX, T, false>(Mit, inv, t);
-  matvec<NX, T, true>(Mtw, inv, w);
-
-  // A1 side: eta and J.  `a` is reused as scratch.
-  Mat<NX, T> a1, MiA1;
-  load_mat(a1, A1, B, l);
-  matmat<NX, T, false>(MiA1, inv, a1);
-  T ve1[NX], out[NX];
-  load_vec(ve1, e1, B, l);
-  matvec<NX, T, true>(out, a1, Mtw);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) oe[i * B + l] = out[i] + ve1[i];
-  {
-    Mat<NX, T> j1;
-    matmat<NX, T, false>(a, MtJ2, a1);     // M^-T J2 A1
-    matmat<NX, T, true>(MtJ2, a1, a);      // A1^T (M^-T J2 A1)
-    load_mat(j1, J1, B, l);
-    store_sym(oJ, MtJ2, j1, B, l);
-  }
-
-  // A2 side: A, b and C.
-  Mat<NX, T> a2;
-  load_mat(a2, A2, B, l);
-  matmat<NX, T, false>(a, a2, MiA1);
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) oA[(i * NX + j) * B + l] = a.v[i][j];
-  T vb2[NX];
-  load_vec(vb2, b2, B, l);
-  matvec<NX, T, false>(out, a2, Mit);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) ob[i * B + l] = out[i] + vb2[i];
-  {
-    Mat<NX, T> c2;
-    matmat_bt<NX, T>(a, MiC1, a2);         // M^-1 C1 A2^T
-    matmat<NX, T, false>(MiC1, a2, a);     // A2 (M^-1 C1 A2^T)
-    load_mat(c2, C2, B, l);
-    store_sym(oC, MiC1, c2, B, l);
-  }
+  // Operand pointers of pair l; entry k of a part is then at p[k * B].
+  const lqt::Elem<T> x1{const_cast<T*>(A1) + l, const_cast<T*>(b1) + l,
+                        const_cast<T*>(C1) + l, const_cast<T*>(e1) + l,
+                        const_cast<T*>(J1) + l, B};
+  const lqt::Elem<T> x2{const_cast<T*>(A2) + l, const_cast<T*>(b2) + l,
+                        const_cast<T*>(C2) + l, const_cast<T*>(e2) + l,
+                        const_cast<T*>(J2) + l, B};
+  const lqt::Elem<T> o{oA + l, ob + l, oC + l, oe + l, oJ + l, B};
+  lqt::combine_thread<NX, T>(x1, x2, o, lqt::Lanes{});
 }
 
 template <int NX, typename T>

@@ -1,34 +1,28 @@
-"""Drivers of the LQT-combine kernel.
+"""Drivers of the LQT-combine kernels.
 
 ``lqt_combine_batched`` takes the natural ``(B, nx, nx)``/``(B, nx)``
-layout, re-lays it out lane-major (batch last), runs the kernel and
-restores the layout.  When the whole scan runs kernel-side the lane-major
-layout is kept across levels instead -- ``kernel_prefix_scan`` /
-``kernel_suffix_scan`` do ONE ``_to_lanes``/``_from_lanes`` round-trip in
-all, and every tree level slices and combines lane-major operands.  The
-tree is :func:`repro_torch.core.pscan.associative_scan`, so the combine
-ORDER matches the plain scan; the per-combine arithmetic still differs
+layout, re-lays it out lane-major (batch last), runs the pairwise kernel
+(``kernel.py``) and restores the layout.
+
+``kernel_prefix_scan`` / ``kernel_suffix_scan`` run a whole scan in ONE
+launch of the scan kernel (``scan.py``), every tree level and every record
+of ``(n, *R, nx, nx)`` elements, read and written in their natural layout:
+no flip, transpose or per-level copy around it.  The tree is
+:func:`repro_torch.core.pscan.associative_scan`'s, so the combine ORDER
+matches the plain scan; the per-combine arithmetic still differs
 (unpivoted Gauss-Jordan vs pivoted ``torch.linalg.solve``), so on the card
 results agree to a tolerance, not bit-exactly.
-
-Record batches: elements ``(n, *R, nx, nx)`` go lane-major as
-``(nx, nx, *R, n)``: the scan axis is the LAST axis, as in the reference,
-and one kernel launch per tree level covers every record.  The tree
-level's strided lane slices are made contiguous on purpose before each
-launch (the kernel takes dense operands); the copies are the price of a
-kernel without stride arguments.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
-from repro_torch.core.pscan import associative_scan
 from repro_torch.core.types import LQTElement
 
 from .kernel import _MAT, lqt_combine_lanes
+from .scan import lqt_scan
 
 _PRECISIONS = {"float32": torch.float32, "float64": torch.float64}
 
@@ -76,13 +70,6 @@ def lqt_combine_batched(e1: LQTElement, e2: LQTElement, *,
                                       block_size=block_size))
 
 
-def _scan_lanes(ops, combine):
-    """Inclusive prefix scan over the LANE (last) axis, earlier operand
-    first: the pair-reduce/odd-scan/even-fixup tree of the plain scan, so
-    each level is one (or two) kernel combines over lane slices."""
-    return associative_scan(combine, ops, axis=-1)
-
-
 def _scan_dtype(precision: str, dtype: torch.dtype) -> torch.dtype:
     if precision in (None, "default"):
         return dtype
@@ -93,36 +80,32 @@ def _scan_dtype(precision: str, dtype: torch.dtype) -> torch.dtype:
                          f"'float64', got {precision!r}") from None
 
 
+def _scan(elems: LQTElement, reverse: bool, block_size: int,
+          precision: str) -> LQTElement:
+    in_dtype = elems[0].dtype
+    cdtype = _scan_dtype(precision, in_dtype)
+    out = lqt_scan(LQTElement(*(a.to(cdtype) for a in elems)),
+                   reverse=reverse, block_size=block_size)
+    return LQTElement(*(a.to(in_dtype) for a in out))
+
+
 def kernel_prefix_scan(elems: LQTElement, *, block_size: int = 128,
                        precision: str = "default") -> LQTElement:
-    """Inclusive prefix combine along axis 0 (earlier operand first), run
-    kernel-side in lane-major layout with one layout round-trip in all.
+    """Inclusive prefix combine along axis 0 (earlier operand first), one
+    scan-kernel launch with ``block_size`` threads per block.
 
     ``precision`` selects the kernel compute dtype (``"default"`` keeps the
     element dtype; ``"float32"``/``"float64"`` cast for the scan and cast
     the result back).
     """
-    lanes = _to_lanes(elems)
-    in_dtype = lanes[0].dtype
-    cdtype = _scan_dtype(precision, in_dtype)
-    combine = functools.partial(_combine_lanes, block_size=block_size)
-    out = _scan_lanes(tuple(a.to(cdtype) for a in lanes), combine)
-    return _from_lanes(tuple(a.to(in_dtype) for a in out))
+    return _scan(elems, False, block_size, precision)
 
 
 def kernel_suffix_scan(elems: LQTElement, *, block_size: int = 128,
                        precision: str = "default") -> LQTElement:
     """Inclusive suffix combine along axis 0 (earlier operand first):
     ``out[i] = a_i (x) ... (x) a_{T-1}``, matching
-    :func:`repro_torch.core.pscan.suffix_scan` -- a flip of the lane axis
-    plus an operand swap, so non-commutativity is preserved."""
-    lanes = _to_lanes(elems)
-    in_dtype = lanes[0].dtype
-    cdtype = _scan_dtype(precision, in_dtype)
-    flipped = tuple(torch.flip(a.to(cdtype), (-1,)) for a in lanes)
-
-    def swapped(a, b):
-        return _combine_lanes(b, a, block_size=block_size)
-
-    out = _scan_lanes(flipped, swapped)
-    return _from_lanes(tuple(torch.flip(a, (-1,)).to(in_dtype) for a in out))
+    :func:`repro_torch.core.pscan.suffix_scan` -- the reversed scan with
+    the operands swapped, done by the kernel's index arithmetic, so
+    non-commutativity is preserved."""
+    return _scan(elems, True, block_size, precision)

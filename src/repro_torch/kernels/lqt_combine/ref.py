@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the batched LQT combination (paper eq. 42).
 
 The same math as :func:`repro_torch.core.combine.lqt_combine` (pivoted
-``torch.linalg.solve``), exposed in the kernel's calling conventions.  The
-CUDA wrapper (:func:`.kernel.lqt_combine_lanes`) runs
-:func:`lqt_combine_lanes_ref` for tensors that lie on the CPU, and the card
-check compares the kernel with it.
+``torch.linalg.solve``), exposed in the kernels' calling conventions.  The
+CUDA wrappers (:func:`.kernel.lqt_combine_lanes`, :func:`.scan.lqt_scan`)
+run :func:`lqt_combine_lanes_ref` / :func:`lqt_scan_ref` for tensors that
+lie on the CPU, and the card checks compare the kernels with them.
 """
 from __future__ import annotations
 
@@ -34,9 +34,10 @@ def lqt_combine_lanes_ref(ops1, ops2):
 
 
 def lqt_scan_ref(elems: LQTElement, *, reverse: bool = False) -> LQTElement:
-    """Plain scan for the whole-scan kernel path: the core associative
-    scan with the core combine, in the element-major (scan axis 0)
-    layout."""
+    """Plain inclusive scan along axis 0 (earlier operand first; with
+    ``reverse`` the suffix scan ``out[i] = a_i (x) ... (x) a_{n-1}``): the
+    core associative scan with the core combine, in the natural layout.
+    Its tree is the scan kernel's (``csrc/lqt_scan.cu``), combine for
+    combine."""
     scan = suffix_scan if reverse else prefix_scan
     return scan(_core_combine, elems)
-

@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card: the LM kernels on the card,
-and the nonlinear estimation path through the ``lqt_combine`` kernel.
+the whole-scan ``lqt_scan`` kernel against its plain scan, and the
+nonlinear estimation path through it.
 
 They skip without a card.  This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -29,6 +30,9 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.lqt_combine import kernel as lqt_kernel
+from repro_torch.kernels.lqt_combine import ref as lqt_ref
+from repro_torch.kernels.lqt_combine import scan as lqt_scan
+from repro_torch.core.types import LQTElement
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.models import transformer
 from repro_torch.serving import Request, ServeEngine
@@ -182,16 +186,50 @@ def test_ssd_dispatch_on_card(card):
 
 
 @pytest.mark.gpu
+def test_scan_kernel_matches_plain_scan_on_card(card):
+    """One launch per scan, for one record and for (2, 3) records, both
+    directions, n with an empty tree level (2), odd n and one element;
+    normwise within 1e-9 of the plain scan in float64 and 1e-3 in float32
+    (``chip_smoke.py`` covers the paths' sizes)."""
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        for n, rec in ((1, ()), (2, (2, 3)), (17, ()), (65, (2, 3))):
+            sh = (n,) + rec
+
+            def r(*s):
+                return torch.randn(*sh, *s, generator=card, device="cuda",
+                                   dtype=torch.float64)
+
+            def psd():
+                A = r(5, 5)
+                return A @ A.transpose(-1, -2) / 5 + 0.1 * torch.eye(
+                    5, device="cuda", dtype=torch.float64)
+
+            e = LQTElement(*(x.to(dtype) for x in (
+                r(5, 5) * 0.6, r(5), psd(), r(5), psd())))
+            for reverse in (False, True):
+                before = lqt_scan.launch_count()
+                got = lqt_scan.lqt_scan(e, reverse=reverse)
+                want = lqt_ref.lqt_scan_ref(e, reverse=reverse)
+                torch.cuda.synchronize()
+                assert lqt_scan.launch_count() == before + 1
+                scale = max(float(w.abs().max()) for w in want)
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                assert err <= tol * scale, (dtype, n, rec, reverse, err)
+
+
+@pytest.mark.gpu
 @pytest.mark.filterwarnings(
     "ignore:`torch.jit.script` is deprecated:DeprecationWarning")
 def test_nonlinear_kernel_path_matches_plain_on_card(card):
     """The iterated smoother on the coordinated turn (N = 640, euler, 3
-    passes, two records) through ``parallel_kernel`` launches
-    ``lqt_combine`` at nx = 5 (the scan tree over 65 elements, 11 launches
-    per pass) and agrees with ``parallel_rts`` on the card to 1e-8
-    (``chip_smoke.py`` runs the paper's full size).  The filter: torch's
-    forward-mode AD loads its decompositions through ``torch.jit.script``,
-    which some torch builds mark deprecated."""
+    passes, two records) through ``parallel_kernel`` launches the scan
+    kernel ``lqt_scan`` at nx = 5 once per pass (the whole tree over 65
+    elements in one launch; the pairwise ``lqt_combine`` not at all) and
+    agrees with ``parallel_rts`` on the card to 1e-8 (``chip_smoke.py``
+    runs the paper's full size).  The filter: torch's forward-mode AD loads
+    its decompositions through ``torch.jit.script``, which some torch
+    builds mark deprecated."""
     cfg = CoordinatedTurnConfig()
     model = cfg.model(device="cuda")
     ts = time_grid(cfg.t0, cfg.tf, 640, device="cuda")
@@ -200,12 +238,13 @@ def test_nonlinear_kernel_path_matches_plain_on_card(card):
     sols = {}
     for method, inner in (("parallel_kernel", KernelOptions(mode="euler")),
                           ("parallel_rts", ParallelOptions(mode="euler"))):
-        before = lqt_kernel.launch_count()
+        before = lqt_scan.launch_count(), lqt_kernel.launch_count()
         sols[method] = Estimator(model, method=method, options=IteratedOptions(
             inner=inner, iterations=3)).solve(p)
         torch.cuda.synchronize()
-        launched = lqt_kernel.launch_count() - before
-        assert launched == (33 if method == "parallel_kernel" else 0)
+        launched = lqt_scan.launch_count() - before[0]
+        assert launched == (3 if method == "parallel_kernel" else 0)
+        assert lqt_kernel.launch_count() == before[1]
     k, r = sols["parallel_kernel"], sols["parallel_rts"]
     assert k.x.device.type == "cuda" and bool(torch.isfinite(k.x).all())
     assert float((k.x - r.x).abs().max()) < 1e-8
