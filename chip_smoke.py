@@ -18,8 +18,10 @@ Phases, each of which fails the run on any miss:
                  card: ``lqt_combine`` on random element pairs with PSD
                  C/J, nx in {2, 4, 5, 8}, lane counts {1, 7, 4097, 2**20},
                  float32 and float64; the scan kernel against the plain
-                 scan at n in {1, 2, 17, 513, 2049}, records {1, 64},
-                 nx in {4, 5}, float32 and float64, both directions, and
+                 scan at every nx in 1..8 (n in {1, 2, 17, 513, 2049}
+                 at the paths' nx = 4, 5; n in {1, 2, 17, 513} at the
+                 others), records {1, 64}, float32 and float64, both
+                 directions, and
                  ``kernel_suffix_scan`` against the core suffix scan;
                  ``flash_attention`` and
                  ``ssd_chunked`` in float32 and bfloat16 on the reference's
@@ -47,7 +49,23 @@ Phases, each of which fails the run on any miss:
                  (``discrete``), the cost traces, median solve times of the
                  three methods, one profiled solve per cell, and the solve in
                  float32 (its distance from float64 printed, not gated);
-3c. lqt timing -- the scan kernel at both estimation paths' scans
+3c. sigma point -- ``method="sigma_point"`` (the posterior-linearisation
+                 smoother, section 5.2's model) on the nonlinear phase's
+                 records: unscented SLR on one record and on 64, cubature
+                 on one, 5 passes each with the scan kernel as the inner
+                 method (one launch per pass), against the same options
+                 with ``parallel_rts`` on the card, the cost traces beside
+                 the Taylor IEKS's costs, median solve times and one
+                 profiled solve per cell;
+3d. ragged    -- 64 Wiener records of 2560..20480 intervals (seeded
+                 draws, prefixes of the estimation phase's records) as one
+                 ``Problem.ragged`` through ``parallel_kernel``: one stacked
+                 solve and one scan launch per bucket, the padding report
+                 against the lengths, every record against ``parallel_rts``
+                 on the card and each bucket's shortest record, unpadded,
+                 against ``sequential_rts`` on the CPU, the median solve
+                 time and one profile;
+3e. lqt timing -- the scan kernel at every path's scans
                  (CUDA events around a CUDA-graph replay of back-to-back
                  scans, eager calls beside), its bound, the per-launch bound
                  of the tree's combines it replaces, the plain scan, and a
@@ -111,6 +129,9 @@ NL_BLOCKS, NL_ITERS, NL_MODE = 512, 5, "euler"
 # RTS at the reference's own bounds (tests/test_nonlinear.py:
 # test_euler_mode_ieks, test_two_filter_ieks)
 NL_KERNEL_TOL, NL_SEQ_TOL, NL_TF_TOL = 1e-8, 5e-2, 1e-5
+# ragged cell: record lengths drawn uniformly from these interval counts
+# (256 to 2048 blocks of nsub = 10), mostly not multiples of nsub
+RAGGED_LENGTHS = (2560, 20480)
 # kernel vs plain version: normwise relative error bound per dtype.  The
 # unpivoted Gauss-Jordan and the pivoted solve differ by round-off times
 # the conditioning of M = I + C1 J2 (at most a few hundred for these
@@ -121,6 +142,11 @@ KERNEL_RTOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 # tree's levels
 SCAN_RTOL = {torch.float64: 1e-9, torch.float32: 1e-3}
 SCAN_SWEEP = (2, 3, 5, 9, 17, 33, 65, 129, 257, 513, 1025, 2049)
+# scan check sizes: the paths' state sizes (nx = 4, 5) up to their longest
+# scan; the rest of 1 <= nx <= 8 (no path runs them) at fewer sizes
+PATH_NX = (4, 5)
+SCAN_CHECK_N = {True: (1, 2, 17, N_BLOCKS // 4 + 1, N_BLOCKS + 1),
+                False: (1, 2, 17, N_BLOCKS // 4 + 1)}
 
 # hymba-1.5b serving cell: two waves of 8 prompts of 2048 tokens.  2048 is
 # a multiple of the 1024 window, the 256 SSD chunk and chunked_mha's 512
@@ -151,6 +177,20 @@ def log(msg: str) -> None:
 def phase(name: str):
     torch.cuda.synchronize()
     log(f"== {name}")
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    global _CARD
+    if _CARD is None:
+        _CARD = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    return _CARD
+
+
+_CARD = None
 
 
 def random_pairs(nx, B, dtype, g):
@@ -459,8 +499,8 @@ def check_scan(g, lqt_scan, lqt_ref) -> None:
     """The scan kernel against the plain scan (the same tree in the kernel's
     schedule, pivoted solves), one launch per call."""
     for dtype in (torch.float64, torch.float32):
-        for nx in (4, 5):
-            for n in (1, 2, 17, N_BLOCKS // 4 + 1, N_BLOCKS + 1):
+        for nx in range(1, 9):
+            for n in SCAN_CHECK_N[nx in PATH_NX]:
                 worst, cases = 0.0, 0
                 for R in (1, RECORDS):
                     for rev in (False, True):
@@ -669,9 +709,10 @@ def median_solve_ms(est, problem, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def estimation_path(lqt_kernel, lqt_scan) -> dict:
+def estimation_path(lqt_kernel, lqt_scan) -> tuple:
     """Returns the scan kernel's launch count and scans (elements, records)
-    on the path, and the launch shapes the per-level scan had."""
+    on the path, and the launch shapes the per-level scan had; and the
+    cell (model, time grid, the 64 records' measurements)."""
     from repro_torch.configs.wiener_velocity import WienerVelocityConfig
     from repro_torch.core import (
         Estimator,
@@ -757,19 +798,20 @@ def estimation_path(lqt_kernel, lqt_scan) -> dict:
 
     shapes = (scan_lane_counts(N_BLOCKS + 1, 1)
               + scan_lane_counts(N_BLOCKS + 1, RECORDS))
-    return {"launches": launches, "shapes": shapes, "nx": 4,
-            "scans": [(N_BLOCKS + 1, 1), (N_BLOCKS + 1, RECORDS)],
-            "pairwise_launches": lqt_kernel.launch_count()}
+    return ({"launches": launches, "shapes": shapes, "nx": 4,
+             "scans": [(N_BLOCKS + 1, 1), (N_BLOCKS + 1, RECORDS)],
+             "pairwise_launches": lqt_kernel.launch_count()},
+            {"model": model, "ts": ts, "yb": yb})
 
 
 # ---------------------------------------------------------------------------
 # 3b. nonlinear path: the iterated smoother on the coordinated turn
 # ---------------------------------------------------------------------------
 
-def nonlinear_path(lqt_kernel, lqt_scan) -> dict:
+def nonlinear_path(lqt_kernel, lqt_scan) -> tuple:
     """The paper's Fig.-2 cell through ``Estimator.solve``; returns the scan
     kernel's launch count and scans on the path, and the launch shapes the
-    per-level scan had."""
+    per-level scan had; and the cell (model, problems, IEKS costs)."""
     from repro_torch.configs.coordinated_turn import CoordinatedTurnConfig
     from repro_torch.core import (
         Estimator,
@@ -895,12 +937,238 @@ def nonlinear_path(lqt_kernel, lqt_scan) -> dict:
             f"{dx:.3e}, finite {bool(torch.isfinite(sol32.x).all())} "
             f"(reported, not gated); solve median "
             f"{median_solve_ms(est32, p32):.3f} ms")
+    return ({"launches": launches, "shapes": shapes, "nx": 5, "scans": scans,
+             "pairwise_launches": lqt_kernel.launch_count()},
+            {"model": model, "nsub": nsub, "problems": problems,
+             "ieks_cost": {k: sol.cost for k, sol in sols.items()}})
+
+
+# ---------------------------------------------------------------------------
+# 3c. sigma-point path: the posterior-linearisation smoother
+# ---------------------------------------------------------------------------
+
+def sigma_point_path(lqt_kernel, lqt_scan, cell: dict) -> dict:
+    """``method="sigma_point"`` on the nonlinear cell's records: unscented
+    SLR on one record and on 64, cubature on one, each with the scan kernel
+    as the inner method, against the same options with ``parallel_rts``;
+    returns the scan kernel's launch count and scans on the path."""
+    from repro_torch.core import (
+        Estimator,
+        KernelOptions,
+        ParallelOptions,
+        SigmaPointOptions,
+    )
+
+    model, nsub, problems = cell["model"], cell["nsub"], cell["problems"]
+
+    def est(lin, inner_method, inner):
+        return Estimator(model, method="sigma_point", options=(
+            SigmaPointOptions(linearization=lin, inner_method=inner_method,
+                              inner=inner, iterations=NL_ITERS)))
+
+    kernel = {lin: est(lin, "parallel_kernel",
+                       KernelOptions(nsub=nsub, mode=NL_MODE))
+              for lin in ("unscented", "cubature")}
+    plain = {lin: est(lin, "parallel_rts",
+                      ParallelOptions(nsub=nsub, mode=NL_MODE))
+             for lin in ("unscented", "cubature")}
+    # (linearisation, problem) per solve
+    cases = {"single": ("unscented", "single"),
+             "stacked64": ("unscented", "stacked64"),
+             "single cubature": ("cubature", "single")}
+    log(f"sigma points: {model.nx} states -> unscented "
+        f"{kernel['unscented'].options.linearization.num_points(model.nx)} "
+        f"and cubature "
+        f"{kernel['cubature'].options.linearization.num_points(model.nx)} "
+        f"points per grid point; {NL_ITERS} passes, {NL_MODE}, float64, on "
+        f"{card()}")
+
+    lqt_kernel.reset_launch_count()
+    lqt_scan.reset_launch_count()
+    sols, per_solve = {}, {}
+    for name, (lin, pname) in cases.items():
+        before = lqt_scan.launch_count()
+        sols[name] = kernel[lin].solve(problems[pname])
+        torch.cuda.synchronize()
+        per_solve[name] = lqt_scan.launch_count() - before
+    launches = lqt_scan.launch_count()
+    log(f"sigma-point path launches: lqt_scan {per_solve} (one per pass), "
+        f"lqt_combine {lqt_kernel.launch_count()}")
+    if (any(n != NL_ITERS for n in per_solve.values())
+            or lqt_kernel.launch_count()):
+        raise AssertionError(f"sigma-point path: lqt_scan launches per "
+                             f"solve {per_solve}, lqt_combine "
+                             f"{lqt_kernel.launch_count()}; expected "
+                             f"{NL_ITERS} each and 0")
+
+    solve_ms = {}
+    for name, (lin, pname) in cases.items():
+        sol, p = sols[name], problems[pname]
+        lead = () if pname == "single" else (RECORDS,)
+        N = NL_BLOCKS * nsub
+        for f, shape in (("x", lead + (N + 1, 5)), ("cost", lead),
+                         ("cost_trace", lead + (NL_ITERS,))):
+            t = getattr(sol, f)
+            if (tuple(t.shape) != shape or t.device.type != "cuda"
+                    or not bool(torch.isfinite(t).all())):
+                raise AssertionError(f"sigma point {name}: {f} "
+                                     f"{tuple(t.shape)} on {t.device} not "
+                                     f"finite or misshapen")
+        dx = float((sol.x - plain[lin].solve(p).x).abs().max())
+        ok = dx < NL_KERNEL_TOL
+        log(f"  {name}: parallel_kernel inner vs parallel_rts inner (cuda): "
+            f"max|dx| {dx:.3e} (tol {NL_KERNEL_TOL:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"sigma point {name}: max|dx| {dx:.3e}")
+        taylor = cell["ieks_cost"][pname]
+        below = int((sol.cost <= taylor * (1 + 1e-6)).sum())
+        log(f"  {name}: cost trace (record 0) "
+            f"{[round(float(c), 3) for c in sol.cost_trace.reshape(-1, NL_ITERS)[0]]}"
+            f"; final cost mean {float(sol.cost.mean()):.3f} against the "
+            f"Taylor IEKS's {float(taylor.mean()):.3f} ({below} of "
+            f"{sol.cost.numel()} records at or below it; printed, not gated)")
+        solve_ms[name] = median_solve_ms(kernel[lin], p)
+        log(f"  solve {name} sigma_point (parallel_kernel inner): median "
+            f"{solve_ms[name]:.3f} ms over 5 runs (CUDA events, after one "
+            f"warm-up) on {card()}")
+
+    phase("sigma-point profile")
+    for name in ("single", "stacked64"):
+        lin, pname = cases[name]
+        profile_summary(f"{name} sigma_point {lin} ({NL_ITERS} passes)",
+                        lambda: kernel[lin].solve(problems[pname]),
+                        solve_ms[name])
+    records = [1 if cases[k][1] == "single" else RECORDS for k in cases]
+    scans = NL_ITERS * [(NL_BLOCKS + 1, r) for r in records]
+    shapes = NL_ITERS * [c for r in records
+                         for c in scan_lane_counts(NL_BLOCKS + 1, r)]
     return {"launches": launches, "shapes": shapes, "nx": 5, "scans": scans,
             "pairwise_launches": lqt_kernel.launch_count()}
 
 
 # ---------------------------------------------------------------------------
-# 3c. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
+# 3d. ragged path: records of unequal lengths by pad-and-bucket
+# ---------------------------------------------------------------------------
+
+def ragged_path(lqt_kernel, lqt_scan, cell: dict) -> dict:
+    """64 Wiener records of lengths drawn uniformly from RAGGED_LENGTHS
+    intervals (prefixes of the estimation cell's 64 records) as one ragged
+    problem through ``parallel_kernel``: one stacked solve and one scan
+    launch per bucket; returns the scan kernel's launch count and scans on
+    the path."""
+    from repro_torch.core import (
+        Estimator,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+        SequentialOptions,
+    )
+
+    model, ts, yb = cell["model"], cell["ts"], cell["yb"]
+    lengths = [int(n) for n in np.random.default_rng(SEED).integers(
+        *RAGGED_LENGTHS, size=RECORDS, endpoint=True)]
+    records = [(ts[:n + 1], yb[:n, i]) for i, n in enumerate(lengths)]
+    problem = Problem.ragged(model, records)
+
+    def n_pad_of(n):
+        """The default bucket rule, written out: nsub * 2^ceil(log2(blocks))
+        with blocks = ceil(n / nsub)."""
+        return NSUB * 2 ** int(np.ceil(np.log2(-(-n // NSUB))))
+
+    bucket = {}
+    for i, n in enumerate(lengths):
+        bucket.setdefault(n_pad_of(n), []).append(i)
+    want = [(n_pad, len(idx), 2 ** int(np.ceil(np.log2(len(idx)))))
+            for n_pad, idx in sorted(bucket.items())]
+    log(f"Wiener velocity, {RECORDS} records of {min(lengths)}..."
+        f"{max(lengths)} intervals ({sum(n % NSUB != 0 for n in lengths)} "
+        f"not multiples of nsub={NSUB}), discrete, float64, default buckets "
+        f"(n_pad, records, batch rows) {want}, on {card()}")
+
+    est_k = Estimator(model, method="parallel_kernel",
+                      options=KernelOptions(nsub=NSUB, mode="discrete"))
+    est_p = Estimator(model, method="parallel_rts",
+                      options=ParallelOptions(nsub=NSUB, mode="discrete"))
+    est_s = Estimator(model, method="sequential_rts",
+                      options=SequentialOptions(mode="discrete"),
+                      device="cpu")
+
+    lqt_kernel.reset_launch_count()
+    lqt_scan.reset_launch_count()
+    sols = est_k.solve(problem)
+    torch.cuda.synchronize()
+    launches = lqt_scan.launch_count()
+    report = sols[0].padding
+    got = [(b.n_pad, b.records, b.batch) for b in report.buckets]
+    log(f"ragged path launches: lqt_scan {launches} (one per bucket), "
+        f"lqt_combine {lqt_kernel.launch_count()}")
+    if (launches != len(want) or lqt_kernel.launch_count()
+            or got != want or report.records != RECORDS
+            or report.lengths != tuple(lengths)
+            or report.real_intervals != sum(lengths)
+            or any(s.padding is not report for s in sols)):
+        raise AssertionError(f"ragged path: {launches} lqt_scan and "
+                             f"{lqt_kernel.launch_count()} lqt_combine "
+                             f"launches, buckets {got}; expected "
+                             f"{len(want)}, 0 and {want}")
+    for b in report.buckets:
+        real = sum(lengths[i] for i in bucket[b.n_pad])
+        log(f"  bucket n_pad={b.n_pad} ({b.n_pad // NSUB} blocks): "
+            f"{b.records} records in {b.batch} rows ({b.recycled_rows} "
+            f"recycled), interval utilisation {real / (b.n_pad * b.batch):.4f}")
+    log(f"  report: {report.records} records, {report.real_intervals} real of "
+        f"{report.solved_intervals} solved intervals (utilisation "
+        f"{report.interval_utilisation:.4f}), row utilisation "
+        f"{report.row_utilisation:.4f}")
+
+    for i, (sol, n) in enumerate(zip(sols, lengths)):
+        for f in ("x", "S", "v", "cost"):
+            t = getattr(sol, f)
+            if t.device.type != "cuda" or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"ragged record {i}: {f} not finite "
+                                     f"on cuda")
+        if tuple(sol.x.shape) != (n + 1, 4):
+            raise AssertionError(f"ragged record {i}: x shape "
+                                 f"{tuple(sol.x.shape)}")
+    ref = est_p.solve(problem)
+    dx = max(float((a.x - b.x).abs().max()) for a, b in zip(sols, ref))
+    ok = dx < 1e-8
+    log(f"  every record, parallel_kernel vs parallel_rts (cuda, the same "
+        f"ragged problem): max|dx| {dx:.3e} (tol 1e-8) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"ragged path: max|dx| {dx:.3e} against "
+                             f"parallel_rts")
+    for b in report.buckets:
+        i = min(bucket[b.n_pad], key=lambda i: lengths[i])
+        ts_i, y_i = records[i]
+        seq = est_s.solve(Problem.single(model, ts_i.cpu(), y_i.cpu()))
+        dx = float((sols[i].x.cpu() - seq.x).abs().max())
+        ok = dx < 1e-6
+        log(f"  bucket n_pad={b.n_pad}: shortest record ({lengths[i]} "
+            f"intervals, padded by {b.n_pad - lengths[i]}) vs sequential_rts "
+            f"on the CPU, unpadded: max|dx| {dx:.3e} (tol 1e-6) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ragged record {i}: max|dx| {dx:.3e} "
+                                 f"against unpadded sequential_rts")
+
+    ms = median_solve_ms(est_k, problem)
+    log(f"  ragged solve parallel_kernel: median {ms:.3f} ms over 5 runs "
+        f"(CUDA events around the whole solve: padding, {len(want)} stacked "
+        f"solves, slicing; after one warm-up) on {card()}")
+    phase("ragged profile")
+    profile_summary(f"ragged {RECORDS} records parallel_kernel",
+                    lambda: est_k.solve(problem), ms)
+    scans = [(n_pad // NSUB + 1, rows) for n_pad, _, rows in want]
+    shapes = [c for n, r in scans for c in scan_lane_counts(n, r)]
+    return {"launches": launches, "shapes": shapes, "nx": 4, "scans": scans,
+            "pairwise_launches": lqt_kernel.launch_count()}
+
+
+# ---------------------------------------------------------------------------
+# 3e. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
 # ---------------------------------------------------------------------------
 
 def per_level_suffix_scan(elems):
@@ -1413,19 +1681,36 @@ def main() -> int:
             "ssd_chunked": check_ssd(g, ssd_kernel, ssd_ref)}
 
     phase("estimation path")
-    paths = {"estimation": estimation_path(lqt_kernel, lqt_scan)}
+    paths, cells = {}, {}
+    paths["estimation"], cells["estimation"] = estimation_path(lqt_kernel,
+                                                               lqt_scan)
     torch.cuda.empty_cache()
 
     phase(f"nonlinear path: coordinated turn, {NL_MODE}, {NL_ITERS} "
           f"iterations")
-    paths["nonlinear"] = nonlinear_path(lqt_kernel, lqt_scan)
+    paths["nonlinear"], cells["nonlinear"] = nonlinear_path(lqt_kernel,
+                                                            lqt_scan)
     torch.cuda.empty_cache()
+
+    phase(f"sigma-point path: coordinated turn, {NL_MODE}, {NL_ITERS} "
+          f"iterations")
+    t0 = time.perf_counter()
+    paths["sigma_point"] = sigma_point_path(lqt_kernel, lqt_scan,
+                                            cells["nonlinear"])
+    torch.cuda.empty_cache()
+    phase("ragged path: Wiener velocity, pad-and-bucket")
+    paths["ragged"] = ragged_path(lqt_kernel, lqt_scan, cells["estimation"])
+    del cells
+    torch.cuda.empty_cache()
+    log(f"sigma-point and ragged phases: {time.perf_counter() - t0:.1f} s")
 
     phase("lqt_scan timing at the estimation paths' scans")
     kernels = [scan_timing(g, lqt_scan, lqt_ref, paths)]
     torch.cuda.empty_cache()
     phase("lqt_combine timing at the per-level scan's launch shapes")
-    kernels.append(combine_timing(g, lqt_kernel, lqt_ref, paths))
+    kernels.append(combine_timing(
+        g, lqt_kernel, lqt_ref,
+        {k: paths[k] for k in ("estimation", "nonlinear")}))
     torch.cuda.empty_cache()
 
     phase(f"serving path: {LM_ARCH}, bfloat16, full width")
@@ -1448,13 +1733,9 @@ def main() -> int:
                                 ssd_ref, g, errs)
 
     phase("report")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(smi.splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

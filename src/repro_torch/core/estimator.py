@@ -2,8 +2,10 @@
 
 * :class:`Problem` describes WHAT to solve -- model + time grid +
   measurements (+ optional mask / information-form prior / warm start), as
-  one record (:meth:`Problem.single`) or records sharing a length
-  (:meth:`Problem.stacked`).  The constructors validate shapes up front.
+  one record (:meth:`Problem.single`), records sharing a length
+  (:meth:`Problem.stacked`) or records of unequal lengths
+  (:meth:`Problem.ragged`, solved by pad-and-bucket).  The constructors
+  validate shapes up front.
 * :class:`~repro_torch.core.options.SolverOptions` subclasses describe HOW;
   each registered method owns its options dataclass.
 * :class:`Estimator` binds (model, method, options, device).  ``device``
@@ -11,7 +13,8 @@
   for ``device="cpu"``.
 * :class:`~repro_torch.core.types.Solution` is the result, with the
   Onsager-Machlup cost of the estimate (and, for nonlinear models, the cost
-  and step-norm traces of the iterations).
+  and step-norm traces of the iterations; for ragged problems, the
+  bucket/padding report).
 
 Nonlinear models are solved with the iterated linearisation of section
 4.4 (:func:`repro_torch.core.nonlinear.iterated_solve`); wrap the inner
@@ -26,35 +29,36 @@ one), so each scan level is one batched operation -- one kernel launch for
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
 from .nonlinear import iterated_solve
 from .options import IteratedOptions, SolverOptions
+from .padding import (
+    _tensor,
+    bucket_length,
+    next_pow2,
+    pad_record,
+    slice_solution,
+)
 from .registry import get_method
 from .sde import LinearSDE, NonlinearSDE, grid_lqt_from_linear, om_cost_grid
-from .types import Solution
+from .types import BucketInfo, PaddingReport, Solution
 
 Model = Union[LinearSDE, NonlinearSDE]
+Records = Sequence[Tuple[Any, Any]]
 
 
-def _tensor(a) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a
-    return torch.as_tensor(np.array(a))
-
-
-def _check_ny(model: Model, y) -> None:
+def _check_ny(model: Model, y, where: str = "") -> None:
     """Reject measurements whose trailing dimension does not match the
     model's ``ny``: a mismatched ``y`` would otherwise broadcast silently
     against ``H x`` (skipped when ``R`` is a callable)."""
     ny = model.ny
     if ny is not None and y.shape[-1] != ny:
         raise ValueError(
-            f"y has measurement dimension {y.shape[-1]} but the model's R "
-            f"is {ny}x{ny} (ny={ny})")
+            f"{where}y has measurement dimension {y.shape[-1]} but the "
+            f"model's R is {ny}x{ny} (ny={ny})")
 
 
 def _check_mask(mask, shape) -> torch.Tensor:
@@ -134,9 +138,10 @@ class Problem:
     """One estimation workload: model + data (+ optional mask / prior /
     warm start).
 
-    Build via :meth:`single` or :meth:`stacked`; arrays may be tensors or
-    anything ``numpy.array`` takes.  They are moved to the estimator's
-    device and the model's dtype at solve time.
+    Build via :meth:`single`, :meth:`stacked` or :meth:`ragged`; arrays
+    may be tensors or anything ``numpy.array`` takes.  They are moved to
+    the estimator's device and the model's dtype at solve time.  For
+    ragged problems ``ts``/``y`` are tuples of per-record tensors.
     """
 
     model: Model
@@ -146,6 +151,8 @@ class Problem:
     x_init: Any = None
     prior: Any = None
     kind: str = "single"
+    bucket_sizes: Optional[Tuple[int, ...]] = None
+    pad_batch: bool = True
 
     @classmethod
     def single(cls, model: Model, ts, y, *, measurement_mask=None,
@@ -204,9 +211,88 @@ class Problem:
         return cls(model, ts, ys, measurement_mask, x_init, prior,
                    kind="stacked")
 
+    @classmethod
+    def ragged(cls, model: Model, records: Records, *, x_init=None,
+               prior=None, bucket_sizes: Optional[Sequence[int]] = None,
+               pad_batch: bool = True) -> "Problem":
+        """Records of unequal length: ``records`` is a sequence of
+        ``(ts_i, y_i)`` pairs with ``ts_i`` ``(N_i+1,)``, ``y_i``
+        ``(N_i, ny)``.  ``x_init`` (nonlinear models) is one shared
+        ``(nx,)`` point or per-record ``(B, nx)`` points; ``prior`` shared
+        or per-record (see :meth:`stacked`).  Solved by pad-and-bucket
+        (:mod:`repro_torch.core.padding`): records are padded to
+        ``bucket_sizes`` (default: powers of two of ``nsub`` blocks), and
+        ``pad_batch`` rounds each bucket's record count up to a power of
+        two.  The solutions carry a
+        :class:`~repro_torch.core.types.PaddingReport`.
+        """
+        records = tuple(records)
+        if not records:
+            raise ValueError("records must be non-empty")
+        ts_all, y_all = [], []
+        for i, (ts_i, y_i) in enumerate(records):
+            ts_i, y_i = _tensor(ts_i), _tensor(y_i)
+            if y_i.dim() != 2 or y_i.shape[0] < 1:
+                raise ValueError(
+                    f"record {i}: y must be (N, ny) with N >= 1, "
+                    f"got {tuple(y_i.shape)}")
+            if tuple(ts_i.shape) != (y_i.shape[0] + 1,):
+                raise ValueError(
+                    f"record {i}: ts must be (N+1,) = "
+                    f"{(y_i.shape[0] + 1,)}, got {tuple(ts_i.shape)}")
+            _check_ny(model, y_i, where=f"record {i}: ")
+            ts_all.append(ts_i)
+            y_all.append(y_i)
+        if x_init is not None:
+            if not isinstance(model, NonlinearSDE):
+                raise ValueError(
+                    "x_init is only meaningful for NonlinearSDE problems")
+            x_init = _tensor(x_init)
+            nx = model.nx
+            if tuple(x_init.shape) not in {(nx,), (len(records), nx)}:
+                raise ValueError(
+                    f"ragged x_init must be ({nx},) shared or "
+                    f"({len(records)}, {nx}) per-record points, "
+                    f"got {tuple(x_init.shape)}")
+        prior = _check_prior(model, prior, len(records))
+        return cls(model, tuple(ts_all), tuple(y_all), None, x_init, prior,
+                   kind="ragged",
+                   bucket_sizes=None if bucket_sizes is None
+                   else tuple(bucket_sizes),
+                   pad_batch=pad_batch)
+
     @property
     def num_records(self) -> int:
-        return 1 if self.kind == "single" else self.y.shape[0]
+        if self.kind == "single":
+            return 1
+        if self.kind == "stacked":
+            return self.y.shape[0]
+        return len(self.y)
+
+    @property
+    def lengths(self) -> Tuple[int, ...]:
+        """Interval count per record."""
+        if self.kind == "single":
+            return (self.y.shape[0],)
+        if self.kind == "stacked":
+            return (self.y.shape[1],) * self.y.shape[0]
+        return tuple(y_i.shape[0] for y_i in self.y)
+
+
+def legacy_options(model: Model, method: str, *, nsub=None, mode=None,
+                   iterations=None, divergence_correction=None):
+    """Map the deprecated entry points' keyword arguments onto the
+    method's options dataclass (fields a method does not declare are
+    dropped, as the old dispatch ignored them)."""
+    spec = get_method(method)
+    inner = spec.options_cls.from_legacy(nsub=nsub, mode=mode)
+    if isinstance(model, NonlinearSDE):
+        outer = {k: v for k, v in
+                 dict(iterations=iterations,
+                      divergence_correction=divergence_correction).items()
+                 if v is not None}
+        return IteratedOptions(inner=inner, **outer)
+    return inner
 
 
 def resolve_device(device=None) -> torch.device:
@@ -300,8 +386,8 @@ class Estimator:
                 raise TypeError(
                     f"{type(options).__name__} belongs to an iterated "
                     f"nonlinear method, not method={self.method!r}; use "
-                    f"the method it was registered with or plain "
-                    f"IteratedOptions")
+                    f"the method it was registered with (e.g. "
+                    f"method='sigma_point') or plain IteratedOptions")
             inner = options.inner if options.inner is not None else cls()
             if not isinstance(inner, cls):
                 raise TypeError(
@@ -320,14 +406,31 @@ class Estimator:
                 f"{cls.__name__}, got {type(options).__name__}")
         return options
 
-    def solve(self, problem: Problem) -> Solution:
-        """Solve a :class:`Problem`; stacked solutions carry the record
-        axis first (``x`` ``(B, N+1, nx)``, ``cost_trace``
-        ``(B, iterations)``)."""
+    @property
+    def block_size(self) -> int:
+        """Grid-length multiple required by the method (``nsub`` for
+        parallel methods, 1 otherwise) -- the bucketing unit."""
+        o = self.options
+        if isinstance(o, IteratedOptions):
+            o = o.inner
+        return getattr(o, "nsub", 1)
+
+    def solve(self, problem: Problem):
+        """Solve a :class:`Problem`.
+
+        Returns a :class:`~repro_torch.core.types.Solution` (single and
+        stacked layouts; stacked solutions carry the record axis first,
+        ``x`` ``(B, N+1, nx)``, ``cost_trace`` ``(B, iterations)``) or,
+        for a ragged problem, a list of per-record ``Solution``\\ s in
+        submission order, each carrying the shared
+        :class:`~repro_torch.core.types.PaddingReport`.
+        """
         if problem.model is not self.model:
             raise ValueError(
                 "problem.model is not this Estimator's model object; build "
                 "the Problem with the same model instance")
+        if problem.kind == "ragged":
+            return self._solve_ragged(problem)
         dtype = self._model.dtype
 
         def put(a):
@@ -389,6 +492,46 @@ class Estimator:
             x=surface(sol.x), S=surface(sol.S), v=surface(sol.v),
             cov=surface(sol.cov), cost=per_record(cost),
             cost_trace=per_record(trace), step_norms=per_record(steps))
+
+    def _solve_ragged(self, problem: Problem) -> List[Solution]:
+        """Pad-and-bucket: one stacked solve per bucket of records padded
+        to one length, its batch rounded up to a power of two (with
+        ``pad_batch``) by recycling the bucket's first record.  (The
+        reference also rounds the batch up to a multiple of a device
+        mesh's batch axis; the port has no sharding yet.)"""
+        lengths = problem.lengths
+        buckets: Dict[int, List[int]] = {}
+        for i, N_i in enumerate(lengths):
+            n_pad = bucket_length(N_i, self.block_size, problem.bucket_sizes)
+            buckets.setdefault(n_pad, []).append(i)
+
+        x_init, prior = problem.x_init, problem.prior
+        per_record_xi = x_init is not None and x_init.dim() == 2
+        per_record_prior = prior is not None and prior[0].dim() == 3
+
+        out: List[Optional[Solution]] = [None] * len(lengths)
+        infos: List[BucketInfo] = []
+        for n_pad, idxs in sorted(buckets.items()):
+            B = len(idxs)
+            B_pad = next_pow2(B) if problem.pad_batch else B
+            rows = idxs + [idxs[0]] * (B_pad - B)           # recycle row 0
+            padded = {i: pad_record(problem.ts[i], problem.y[i], n_pad)
+                      for i in idxs}
+            ts_b, ys_b, mask_b = (torch.stack([padded[i][j] for i in rows])
+                                  for j in range(3))
+            xi_b = x_init[rows] if per_record_xi else x_init
+            pr_b = (tuple(a[rows] for a in prior) if per_record_prior
+                    else prior)
+            sub = Problem.stacked(self.model, ts_b, ys_b,
+                                  measurement_mask=mask_b, x_init=xi_b,
+                                  prior=pr_b)
+            sol = self.solve(sub)
+            infos.append(BucketInfo(n_pad=n_pad, records=B, batch=B_pad))
+            for row, i in enumerate(idxs):
+                out[i] = slice_solution(sol, row, lengths[i])
+
+        report = PaddingReport(lengths=tuple(lengths), buckets=tuple(infos))
+        return [dataclasses.replace(s, padding=report) for s in out]
 
     @staticmethod
     def _stacked_x_init(x_init: torch.Tensor, B: int) -> torch.Tensor:

@@ -9,9 +9,14 @@ coordinated-turn model).
 
 Records ride as tensor dims after the time axis, as everywhere in the
 port: one pass linearises and solves every record at once.
+
+:func:`iterated_solve` is the engine room of
+:class:`repro_torch.core.Estimator`; :func:`iterated_map` is the
+deprecated entry point, a shim around the Estimator surface.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -86,3 +91,35 @@ def iterated_solve(
     if not track_costs:
         return sol, None, None
     return sol, torch.stack(costs), torch.stack(steps)
+
+
+def iterated_map(
+    model: NonlinearSDE,
+    ts,
+    y,
+    *,
+    iterations: int = 5,
+    method: str = "parallel_rts",
+    nsub: int = 10,
+    mode: str = "euler",
+    divergence_correction: bool = False,
+    x_init=None,
+    measurement_mask=None,
+    device=None,
+):
+    """Deprecated shim: use ``Estimator(model, method=..., options=
+    IteratedOptions(...), device=...).solve(Problem.single(...))``."""
+    warnings.warn(
+        "iterated_map is deprecated; use repro_torch.core.Estimator with "
+        "IteratedOptions and Problem.single",
+        DeprecationWarning, stacklevel=2)
+    from .estimator import Estimator, Problem, legacy_options
+
+    est = Estimator(model, method=method, device=device,
+                    options=legacy_options(
+                        model, method, nsub=nsub, mode=mode,
+                        iterations=iterations,
+                        divergence_correction=divergence_correction))
+    return est.solve(Problem.single(model, ts, y,
+                                    measurement_mask=measurement_mask,
+                                    x_init=x_init))

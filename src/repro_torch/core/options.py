@@ -16,7 +16,11 @@ dataclass registered alongside the solver
 * :class:`IteratedOptions` -- the iterated-linearisation (nonlinear) layer:
   ``iterations`` / ``divergence_correction`` / ``linearization`` plus the
   ``inner`` options of the linear method that solves each linearised
-  subproblem.
+  subproblem;
+* :class:`SigmaPointOptions` -- the ``sigma_point`` method (iterated
+  posterior-linearisation smoother): :class:`IteratedOptions` with a
+  sigma-point SLR default linearisation and an ``inner_method`` naming the
+  linear method each linearised subproblem runs on.
 
 Unknown option names fail at construction (``TypeError`` from the
 dataclass ``__init__``); bad values fail in ``__post_init__``.
@@ -46,6 +50,15 @@ class SolverOptions:
         if self.mode not in MODES:
             raise ValueError(
                 f"mode must be one of {MODES}, got {self.mode!r}")
+
+    @classmethod
+    def from_legacy(cls, **kwargs) -> "SolverOptions":
+        """Build options from the legacy keyword arguments of the
+        deprecated entry points, keeping only the fields THIS options
+        class declares (and dropping ``None`` values)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in kwargs.items()
+                      if k in names and v is not None})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +145,8 @@ class IteratedOptions:
     nonlinear model is the same as ``IteratedOptions(inner=that)``.
 
     ``linearization`` selects how each iteration linearises the model: a
-    registered name (``"taylor"``) or a
+    registered name (``"taylor"``, ``"unscented"``, ``"cubature"``,
+    ``"gauss_hermite"``) or a
     :class:`repro_torch.linearize.Linearization` instance, resolved to an
     instance at construction so that a bad name fails here.
     """
@@ -156,3 +170,28 @@ class IteratedOptions:
 
     def replace(self, **changes) -> "IteratedOptions":
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class SigmaPointOptions(IteratedOptions):
+    """Options of the ``sigma_point`` method: the iterated
+    posterior-linearisation smoother (sigma-point SLR instead of Taylor).
+
+    ``inner_method`` names the registered LINEAR method each linearised
+    subproblem is solved with (``"parallel_rts"``, ``"sequential_rts"``,
+    ``"parallel_kernel"``, ...); ``inner`` carries that method's options
+    (``None`` = its defaults).  ``linearization`` defaults to the
+    unscented SLR family; any registered strategy -- including
+    ``"taylor"``, which makes ``sigma_point`` the plain IEKS -- is
+    accepted.
+    """
+
+    linearization: object = "unscented"
+    inner_method: str = "parallel_rts"
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if not isinstance(self.inner_method, str) or not self.inner_method:
+            raise ValueError(
+                f"inner_method must be a non-empty method name, "
+                f"got {self.inner_method!r}")

@@ -21,6 +21,7 @@ from .options import (
     KernelOptions,
     ParallelOptions,
     SequentialOptions,
+    SigmaPointOptions,
     SolverOptions,
     TwoFilterOptions,
 )
@@ -73,6 +74,19 @@ def get_method(name: str) -> MethodSpec:
         ) from None
 
 
+def get_solver(name: str) -> Callable:
+    """Back-compat accessor: a ``(grid, nsub, mode)`` adapter around the
+    registered solver (fields the method's options do not declare are
+    dropped)."""
+    spec = get_method(name)
+
+    def solver(grid, nsub, mode):
+        return spec.solver(grid,
+                           spec.options_cls.from_legacy(nsub=nsub, mode=mode))
+
+    return solver
+
+
 def method_names() -> Tuple[str, ...]:
     return tuple(_METHODS)
 
@@ -104,6 +118,20 @@ register_method(
         grid, o.nsub, o.mode, jitter=o.jitter,
         block0_fill=o.block0_fill, tf_fill=o.tf_fill),
     TwoFilterOptions)
+
+
+def _sigma_point_solver(grid: GridLQT, o: SigmaPointOptions) -> MAPSolution:
+    """``sigma_point`` is not a grid solver: the Estimator resolves its
+    ``inner_method`` and runs the iterated loop around THAT solver.  Only
+    a direct ``spec.solver(grid, options)`` call -- which would silently
+    skip the linearisation loop -- lands here."""
+    raise TypeError(
+        "method='sigma_point' is an iterated nonlinear method, not a grid "
+        "solver; use Estimator(model, method='sigma_point').solve(problem) "
+        "with a NonlinearSDE model")
+
+
+register_method("sigma_point", _sigma_point_solver, SigmaPointOptions)
 register_method(
     "sequential_rts",
     lambda grid, o: sequential_rts(grid, o.mode),

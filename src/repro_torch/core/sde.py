@@ -200,22 +200,29 @@ def grid_lqt_from_nonlinear(
     time-reverse into the grid LQT problem.
 
     ``linearization`` selects the strategy (``None``/"taylor" = the
-    Jacobian path).  Strategies with a residual covariance (the
-    reference's sigma-point regressions, which fold it into ``Q``/``R``)
-    are not ported yet and raise.
+    Jacobian path).  Strategies with a residual covariance (sigma-point
+    SLR) fold it into the noise per grid point, ``Q + Omega_f`` and
+    ``R + Omega_h``: the posterior-linearisation construction.  Their
+    spread covariance is the model's ``P0`` (scaled by the strategy's
+    ``spread``) at every point, a fixed proxy until posterior covariances
+    are plumbed through; being shared, it is factored once.
     """
     if ts.shape[1:] != y.shape[1:-1]:
         raise ValueError(
             f"ts {tuple(ts.shape)} and y {tuple(y.shape)} must share the "
             f"record dims after the time axis")
-    if get_linearization(linearization).has_residual:
-        raise NotImplementedError(
-            "linearisations with a residual covariance (sigma-point "
-            "regression) are not ported yet; see ROADMAP.md, queue 1")
+    strategy = get_linearization(linearization)
     tl = ts[:-1]
-    F, c, H, r = model.linearise(xbar, ts)
     Q = model._eval(model.Q, tl)
     R = model._eval(model.R, tl)
+    if not strategy.has_residual:
+        F, c, H, r = model.linearise(xbar, ts)
+    else:
+        xb = xbar[:-1]
+        F, c, Of = strategy.linearize_grid(model.f, xb, tl, model.P0)
+        H, r, Oh = strategy.linearize_grid(model.h, xb, tl, model.P0)
+        Q = Q + Of
+        R = R + Oh
     dt = ts[1:] - ts[:-1]
     lin = None
     if divergence_correction:

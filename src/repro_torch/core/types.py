@@ -20,7 +20,7 @@ the combines broadcast over the record dims.  Fields without a time axis
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -108,6 +108,54 @@ class MAPSolution(NamedTuple):
 
 
 @dataclasses.dataclass(frozen=True)
+class BucketInfo:
+    """One pad-and-bucket stacked solve of a ragged problem."""
+
+    n_pad: int     # padded interval count every record in the bucket shares
+    records: int   # real records solved in this bucket
+    batch: int     # solved batch rows (>= records after batch padding)
+
+    @property
+    def recycled_rows(self) -> int:
+        return self.batch - self.records
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddingReport:
+    """Bucket/padding accounting attached to ragged solutions.
+
+    ``lengths`` are the original record interval counts in submission
+    order; ``buckets`` one entry per stacked solve.  Utilisation ratios
+    quantify the pad-and-bucket overhead (1.0 = no padding).
+    """
+
+    lengths: Tuple[int, ...]
+    buckets: Tuple[BucketInfo, ...]
+
+    @property
+    def records(self) -> int:
+        return len(self.lengths)
+
+    @property
+    def real_intervals(self) -> int:
+        return sum(self.lengths)
+
+    @property
+    def solved_intervals(self) -> int:
+        return sum(b.n_pad * b.batch for b in self.buckets)
+
+    @property
+    def interval_utilisation(self) -> float:
+        solved = self.solved_intervals
+        return self.real_intervals / solved if solved else 1.0
+
+    @property
+    def row_utilisation(self) -> float:
+        rows = sum(b.batch for b in self.buckets)
+        return self.records / rows if rows else 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Solution:
     """Result of :meth:`repro_torch.core.Estimator.solve`.
 
@@ -117,7 +165,8 @@ class Solution:
     discretised Onsager-Machlup cost of ``x``.  For nonlinear solves
     ``cost_trace`` holds the cost after each linearise-and-solve pass
     (``cost == cost_trace[..., -1]``) and ``step_norms`` the RMS update of
-    each pass.
+    each pass.  ``padding`` is present only on solutions of ragged
+    problems.
     """
 
     x: Tensor                       # (..., N+1, nx) MAP trajectory
@@ -127,3 +176,4 @@ class Solution:
     cost: Optional[Tensor] = None   # (...,) Onsager-Machlup cost
     cost_trace: Optional[Tensor] = None   # (..., iterations)
     step_norms: Optional[Tensor] = None   # (..., iterations)
+    padding: Optional[PaddingReport] = None   # ragged solves only

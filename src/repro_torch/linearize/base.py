@@ -8,9 +8,9 @@ residual covariance ``Omega`` quantifying the surrogate's error:
 
 ``cov`` is the spread a regression strategy may average over;
 derivative-based strategies ignore it.  ``Omega`` is ``None`` for
-exact-at-a-point strategies (Taylor) and a PSD matrix for the reference's
-regression strategies (sigma points, not ported yet), whose residual
-``grid_lqt_from_nonlinear`` will fold into the noise.
+exact-at-a-point strategies (Taylor) and a PSD matrix for regression
+strategies (sigma-point SLR), whose residual ``grid_lqt_from_nonlinear``
+folds into the noise (``Q + Omega_f``, ``R + Omega_h``).
 
 Strategies are frozen dataclasses (hashable, so they ride inside the
 frozen options) and stateless.  ``g`` is a torch function of one point
@@ -23,9 +23,6 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-
-# The reference's sigma-point strategies, not ported yet.
-NOT_PORTED = ("unscented", "cubature", "gauss_hermite")
 
 
 def vmap_points(fn: Callable, *args: torch.Tensor):
@@ -57,11 +54,18 @@ class Linearization:
         returns ``(A, b, Omega)`` with ``Omega`` possibly ``None``."""
         raise NotImplementedError
 
-    def linearize_grid(self, g: Callable, xb, tl):
+    def linearize_grid(self, g: Callable, xb, tl, covs=None):
         """Linearisation over a grid of nominal points: ``xb``
-        ``(N, *R, nx)``, ``tl`` ``(N, *R)``.  Returns grid tensors
-        ``(A, b, Omega)``."""
+        ``(N, *R, nx)``, ``tl`` ``(N, *R)``, ``covs`` the spread
+        covariance (``None`` for derivative strategies).  Returns grid
+        tensors ``(A, b, Omega)`` -- ``Omega`` is ``None`` iff
+        ``has_residual`` is ``False``."""
         raise NotImplementedError
+
+    def num_points(self, n: int) -> int:
+        """Function evaluations per grid point (1 for derivative
+        strategies; the sigma-point count for regression strategies)."""
+        return 1
 
 
 _LINEARIZATIONS: Dict[str, Callable[[], Linearization]] = {}
@@ -88,11 +92,6 @@ def get_linearization(spec: "Optional[str | Linearization]") -> Linearization:
     if isinstance(spec, Linearization):
         return spec
     if isinstance(spec, str):
-        if spec in NOT_PORTED and spec not in _LINEARIZATIONS:
-            raise NotImplementedError(
-                f"linearization {spec!r} (sigma-point statistical linear "
-                f"regression) is not ported yet; see ROADMAP.md, queue 1. "
-                f"Use 'taylor'.")
         try:
             return _LINEARIZATIONS[spec]()
         except KeyError:

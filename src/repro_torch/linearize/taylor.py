@@ -41,7 +41,7 @@ class Taylor(Linearization):
         A, b = taylor_linearize_point(g, x, t)
         return A, b, None
 
-    def linearize_grid(self, g: Callable, xb, tl):
+    def linearize_grid(self, g: Callable, xb, tl, covs=None):
         A, b = taylor_linearize_grid(g, xb, tl)
         return A, b, None
 

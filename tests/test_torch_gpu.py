@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the LM kernels on the card,
 the whole-scan ``lqt_scan`` kernel against its plain scan, and the
-nonlinear estimation path through it.
+nonlinear estimation paths (the iterated Taylor and sigma-point
+smoothers) through it.
 
 They skip without a card.  This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -10,6 +11,7 @@ reference package, so it also runs where only PyTorch is installed:
 (``--noconftest``: the suite's ``conftest.py`` configures JAX).
 """
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from repro_torch.core import (
     KernelOptions,
     ParallelOptions,
     Problem,
+    SigmaPointOptions,
     simulate_nonlinear,
     time_grid,
 )
@@ -187,11 +190,13 @@ def test_ssd_dispatch_on_card(card):
 
 @pytest.mark.gpu
 def test_scan_kernel_matches_plain_scan_on_card(card):
-    """One launch per scan, for one record and for (2, 3) records, both
+    """One launch per scan, at every state size the kernel takes
+    (1 <= nx <= 8), for one record and for (2, 3) records, both
     directions, n with an empty tree level (2), odd n and one element;
     normwise within 1e-9 of the plain scan in float64 and 1e-3 in float32
     (``chip_smoke.py`` covers the paths' sizes)."""
-    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+    for (dtype, tol), nx in itertools.product(
+            ((torch.float64, 1e-9), (torch.float32, 1e-3)), range(1, 9)):
         for n, rec in ((1, ()), (2, (2, 3)), (17, ()), (65, (2, 3))):
             sh = (n,) + rec
 
@@ -200,12 +205,12 @@ def test_scan_kernel_matches_plain_scan_on_card(card):
                                    dtype=torch.float64)
 
             def psd():
-                A = r(5, 5)
-                return A @ A.transpose(-1, -2) / 5 + 0.1 * torch.eye(
-                    5, device="cuda", dtype=torch.float64)
+                A = r(nx, nx)
+                return A @ A.transpose(-1, -2) / nx + 0.1 * torch.eye(
+                    nx, device="cuda", dtype=torch.float64)
 
             e = LQTElement(*(x.to(dtype) for x in (
-                r(5, 5) * 0.6, r(5), psd(), r(5), psd())))
+                r(nx, nx) * 0.6, r(nx), psd(), r(nx), psd())))
             for reverse in (False, True):
                 before = lqt_scan.launch_count()
                 got = lqt_scan.lqt_scan(e, reverse=reverse)
@@ -215,7 +220,7 @@ def test_scan_kernel_matches_plain_scan_on_card(card):
                 scale = max(float(w.abs().max()) for w in want)
                 err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
-                assert err <= tol * scale, (dtype, n, rec, reverse, err)
+                assert err <= tol * scale, (dtype, nx, n, rec, reverse, err)
 
 
 @pytest.mark.gpu
@@ -249,3 +254,34 @@ def test_nonlinear_kernel_path_matches_plain_on_card(card):
     assert k.x.device.type == "cuda" and bool(torch.isfinite(k.x).all())
     assert float((k.x - r.x).abs().max()) < 1e-8
     assert bool((k.cost_trace[:, -1] < k.cost_trace[:, 0]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.filterwarnings(
+    "ignore:`torch.jit.script` is deprecated:DeprecationWarning")
+def test_sigma_point_kernel_inner_matches_plain_on_card(card):
+    """``method="sigma_point"`` (unscented SLR) on the coordinated turn
+    (N = 640, euler, 3 passes, two records) with ``parallel_kernel`` as
+    the inner method launches ``lqt_scan`` once per pass and agrees with
+    the ``parallel_rts`` inner method on the card to 1e-8."""
+    cfg = CoordinatedTurnConfig()
+    model = cfg.model(device="cuda")
+    ts = time_grid(cfg.t0, cfg.tf, 640, device="cuda")
+    _, y = simulate_nonlinear(model, ts[:, None].expand(-1, 2), card)
+    p = Problem.stacked(model, ts, y.movedim(1, 0))
+    sols = {}
+    for method, inner in (("parallel_kernel", KernelOptions(mode="euler")),
+                          ("parallel_rts", ParallelOptions(mode="euler"))):
+        before = lqt_scan.launch_count(), lqt_kernel.launch_count()
+        sols[method] = Estimator(model, method="sigma_point",
+                                 options=SigmaPointOptions(
+                                     inner_method=method, inner=inner,
+                                     iterations=3)).solve(p)
+        torch.cuda.synchronize()
+        launched = lqt_scan.launch_count() - before[0]
+        assert launched == (3 if method == "parallel_kernel" else 0)
+        assert lqt_kernel.launch_count() == before[1]
+    k, r = sols["parallel_kernel"], sols["parallel_rts"]
+    assert k.x.device.type == "cuda" and bool(torch.isfinite(k.x).all())
+    assert bool(torch.isfinite(k.cost_trace).all())
+    assert float((k.x - r.x).abs().max()) < 1e-8

@@ -34,6 +34,7 @@ from repro.core import TwoFilterOptions as JTwoFilterOptions
 from repro.core import sde as jsde
 from repro.core import simulate_nonlinear as jsimulate_nonlinear
 from repro.core import time_grid
+from repro.linearize import Taylor as JTaylor
 from repro_torch.configs.coordinated_turn import CoordinatedTurnConfig
 from repro_torch.convert import nonlinear_sde_from_numpy
 from repro_torch.core import (
@@ -50,7 +51,14 @@ from repro_torch.core import (
     simulate_nonlinear,
 )
 from repro_torch.core import registry
-from repro_torch.linearize import Taylor, get_linearization
+from repro_torch.linearize import (
+    SLR,
+    Cubature,
+    GaussHermite,
+    Taylor,
+    Unscented,
+    get_linearization,
+)
 
 torch.set_num_threads(1)
 
@@ -364,22 +372,62 @@ def test_iterated_options_validation_mirrors_reference(ct):
 
 @dataclasses.dataclass(frozen=True)
 class _Regression(Taylor):
-    """Stands in for a strategy with a residual covariance."""
+    """A strategy with a residual covariance: Taylor's expansion with the
+    residual ``scale * I`` at every point (``covs`` is the spread the
+    grid builder passes, ``P0``)."""
 
     has_residual = True
+    scale = 1e-3
+
+    def linearize_grid(self, g, xb, tl, covs=None):
+        assert tuple(covs.shape) == (5, 5)
+        A, b, _ = super().linearize_grid(g, xb, tl)
+        nz = A.shape[-2]
+        return A, b, self.scale * torch.eye(nz, dtype=A.dtype).expand(
+            A.shape[:-2] + (nz, nz))
 
 
-def test_sigma_point_linearizations_are_not_ported(ct):
-    for name in ("unscented", "cubature", "gauss_hermite"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_linearization(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            IteratedOptions(linearization=name)
+@dataclasses.dataclass(frozen=True)
+class _JRegression(JTaylor):
+    """The same strategy for the reference package."""
+
+    has_residual = True
+    scale = 1e-3
+
+    def linearize_grid(self, g, xb, tl, covs=None):
+        A, b, _ = super().linearize_grid(g, xb, tl)
+        nz = A.shape[-2]
+        return A, b, self.scale * jnp.broadcast_to(jnp.eye(nz), A.shape[:-2]
+                                                   + (nz, nz))
+
+
+def test_sigma_point_linearizations_resolve_to_slr(ct):
+    """The sigma-point names resolve to SLR strategies, by name and through
+    the options; a strategy's residual covariance is folded into Q and R
+    as the reference folds it."""
+    for name, family in (("unscented", Unscented), ("cubature", Cubature),
+                         ("gauss_hermite", GaussHermite)):
+        for lin in (get_linearization(name),
+                    IteratedOptions(linearization=name).linearization):
+            assert isinstance(lin, SLR) and lin.has_residual
+            assert isinstance(lin.family, family) and lin.spread == 0.01
     assert isinstance(get_linearization(None), Taylor)
-    ts, y = _t(ct["ts"]), _t(ct["y"])
-    with pytest.raises(NotImplementedError, match="residual covariance"):
-        grid_lqt_from_nonlinear(ct["tmodel"], ts, y, _t(ct["xs"]),
-                                linearization=_Regression())
+    jm, tm = ct["jmodel"], ct["tmodel"]
+    rng = np.random.default_rng(9)
+    xbar = ct["xs"] + 0.05 * rng.standard_normal(ct["xs"].shape)
+    want = jsde.grid_lqt_from_nonlinear(
+        jm, *map(jnp.asarray, (ct["ts"], ct["y"], xbar)),
+        linearization=_JRegression())
+    got = grid_lqt_from_nonlinear(tm, _t(ct["ts"]), _t(ct["y"]), _t(xbar),
+                                  linearization=_Regression())
+    plain = grid_lqt_from_nonlinear(tm, _t(ct["ts"]), _t(ct["y"]), _t(xbar))
+    torch.testing.assert_close(
+        got.Q, plain.Q + _Regression.scale * torch.eye(5, dtype=torch.float64),
+        rtol=0, atol=1e-18)
+    for f in ("F", "c", "H", "r", "Q", "Rinv", "y"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=1e-10,
+                                   atol=1e-12, err_msg=f)
 
 
 @dataclasses.dataclass(frozen=True)
