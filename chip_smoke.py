@@ -65,7 +65,33 @@ Phases, each of which fails the run on any miss:
                  on the card and each bucket's shortest record, unpadded,
                  against ``sequential_rts`` on the CPU, the median solve
                  time and one profile;
-3e. lqt timing -- the scan kernel at every path's scans
+3e. trajectory engine -- the ragged cell's 64 records submitted from the
+                 host in draw order to ``TrajectoryEngine(batch=16,
+                 method="parallel_kernel")`` and drained: waves per bucket
+                 (ceil(records / 16)), one scan launch per wave, the
+                 recycled rows, every record against the port's
+                 ``parallel_rts`` ragged solve on the card; drain
+                 records/s, record latency p50/p99, occupancy, padding
+                 waste (``repro_torch.obs``) and one profiled wave;
+3f. streaming, linear -- 256 Wiener tracks of 400 intervals through
+                 ``StreamingEngine(lag=64, batch=64,
+                 method="parallel_kernel")`` in round-robin chunks of 20
+                 with a drain after each round (the reference's streaming
+                 benchmark workload at 16x its tracks), after a warm-up
+                 pass on other tracks: one scan launch per wave, four
+                 tracks' final windows against an offline ``parallel_rts``
+                 solve of the whole record; windows/s, window latency
+                 p50/p99, eviction counters and one profiled wave; then a
+                 late pass (lag 10, reorder slack 20, 10 % of the
+                 measurements one round late): no late drops and the same
+                 offline bound;
+3g. streaming, sigma point -- 64 coordinated-turn tracks of 200
+                 intervals through two ``StreamingEngine(method=
+                 "sigma_point")``s (inner ``parallel_kernel`` and
+                 ``parallel_rts``) on the same pushes: the scan launched
+                 once per pass of each wave, the final estimates within
+                 1e-8 of each other; windows/s and latency;
+3h. lqt timing -- the scan kernel at every path's scans
                  (CUDA events around a CUDA-graph replay of back-to-back
                  scans, eager calls beside), its bound, the per-launch bound
                  of the tree's combines it replaces, the plain scan, and a
@@ -96,6 +122,7 @@ It imports only the port, never the JAX reference package.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -132,6 +159,15 @@ NL_KERNEL_TOL, NL_SEQ_TOL, NL_TF_TOL = 1e-8, 5e-2, 1e-5
 # ragged cell: record lengths drawn uniformly from these interval counts
 # (256 to 2048 blocks of nsub = 10), mostly not multiples of nsub
 RAGGED_LENGTHS = (2560, 20480)
+# trajectory-engine cell: the ragged cell's records through the engine in
+# waves of ENGINE_BATCH
+ENGINE_BATCH = 16
+# streaming cells: the reference's streaming benchmark workload (lag 64,
+# chunks of 20; benchmarks/streaming_latency.py:136) at 256 tracks of 400
+# intervals in waves of 64; sigma point: 64 tracks of 200 intervals
+STREAM_TRACKS, STREAM_N, STREAM_LAG, STREAM_CHUNK, STREAM_BATCH = (
+    256, 400, 64, 20, 64)
+SP_STREAM_TRACKS, SP_STREAM_N = 64, 200
 # kernel vs plain version: normwise relative error bound per dtype.  The
 # unpivoted Gauss-Jordan and the pivoted solve differ by round-off times
 # the conditioning of M = I + C1 J2 (at most a few hundred for these
@@ -1168,7 +1204,401 @@ def ragged_path(lqt_kernel, lqt_scan, cell: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 3e. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
+# 3e-3g. the estimation serving engines
+# ---------------------------------------------------------------------------
+
+def recording_solves(estimator) -> list:
+    """Wrap ``estimator.solve`` so that every call appends its problem's
+    ``(records, intervals)``: the shape of each wave's stacked solve."""
+    shapes, solve = [], estimator.solve
+
+    def recorded(problem):
+        shapes.append(tuple(problem.y.shape[:2]))
+        return solve(problem)
+
+    estimator.solve = recorded
+    return shapes
+
+
+def wave_path(launches: int, shapes, passes: int, nx: int) -> dict:
+    """A path's scan record for the timing phase: the scans ``(elements,
+    records)`` that the waves of ``shapes`` launch, and the launch shapes
+    the per-level scan would have had for them."""
+    scans = [(n // NSUB + 1, b) for b, n in shapes for _ in range(passes)]
+    return {"launches": launches, "scans": scans, "nx": nx,
+            "shapes": [c for n, r in scans for c in scan_lane_counts(n, r)],
+            "pairwise_launches": 0}
+
+
+def latency_line(name: str) -> str:
+    from repro_torch import obs
+
+    h = obs.histogram(name).summary()
+    return (f"{name} p50 {h['p50'] * 1e3:.3f} ms, p99 {h['p99'] * 1e3:.3f} "
+            f"ms over {h['count']} (obs histogram, bucket-interpolated)")
+
+
+def profile_wave(label: str, step) -> None:
+    """Time one wave (``step()``) by CUDA events, then profile another."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step()
+    stop.record()
+    torch.cuda.synchronize()
+    profile_summary(label, step, start.elapsed_time(stop))
+
+
+def trajectory_engine_path(lqt_kernel, lqt_scan, cell: dict) -> dict:
+    """The ragged cell's 64 records submitted in draw order to a
+    ``TrajectoryEngine`` (``parallel_kernel``, waves of ENGINE_BATCH) and
+    drained: waves per bucket, one scan launch per wave, every record
+    against the port's ragged ``parallel_rts`` solve on the card."""
+    from repro_torch import obs
+    from repro_torch.core import (
+        Estimator,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+    )
+    from repro_torch.serving import TrajectoryEngine
+
+    model, ts, yb = cell["model"], cell["ts"], cell["yb"]
+    lengths = [int(n) for n in np.random.default_rng(SEED).integers(
+        *RAGGED_LENGTHS, size=RECORDS, endpoint=True)]
+    records = [(ts[:n + 1], yb[:n, i]) for i, n in enumerate(lengths)]
+    # records arrive from the host, as a client would submit them
+    host = [(t.cpu().numpy(), y.cpu().numpy()) for t, y in records]
+    counts = {}
+    for n in lengths:
+        n_pad = NSUB * 2 ** int(np.ceil(np.log2(-(-n // NSUB))))
+        counts[n_pad] = counts.get(n_pad, 0) + 1
+    want_waves = {n_pad: -(-c // ENGINE_BATCH) for n_pad, c in counts.items()}
+    want_recycled = sum(w * ENGINE_BATCH - counts[n]
+                        for n, w in want_waves.items())
+    log(f"Wiener velocity, the ragged cell's {RECORDS} records submitted in "
+        f"draw order to TrajectoryEngine(batch={ENGINE_BATCH}, "
+        f"method='parallel_kernel', discrete, float64), buckets (n_pad: "
+        f"records) {dict(sorted(counts.items()))}, on {card()}")
+
+    opts = KernelOptions(nsub=NSUB, mode="discrete")
+    eng = TrajectoryEngine(model, batch=ENGINE_BATCH,
+                           method="parallel_kernel", options=opts)
+    shapes = recording_solves(eng.estimator)
+    obs.reset()
+    obs.enable()
+    lqt_kernel.reset_launch_count()
+    lqt_scan.reset_launch_count()
+    t0 = time.perf_counter()
+    tickets = [eng.submit(t, y) for t, y in host]
+    eng.run()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = lqt_scan.launch_count()
+    got = dict(eng.collect(tickets=tickets))
+    snap = obs.snapshot()
+    waves = {}
+    for _, n in shapes:
+        waves[n] = waves.get(n, 0) + 1
+    log(f"trajectory engine launches: lqt_scan {launches} ({eng.waves} "
+        f"waves), lqt_combine {lqt_kernel.launch_count()}; waves per bucket "
+        f"{dict(sorted(waves.items()))}")
+    c = snap["counters"]
+    if (waves != want_waves or launches != eng.waves
+            or lqt_kernel.launch_count() or len(got) != RECORDS
+            or c.get("engine.completed") != RECORDS
+            or c.get("engine.recycled_rows") != want_recycled
+            or eng.recycled_rows != want_recycled):
+        raise AssertionError(
+            f"trajectory engine: waves {waves} (want {want_waves}), "
+            f"{launches} lqt_scan launches for {eng.waves} waves, "
+            f"{lqt_kernel.launch_count()} lqt_combine, completed "
+            f"{c.get('engine.completed')}, recycled rows "
+            f"{c.get('engine.recycled_rows')} (want {want_recycled})")
+    ref = Estimator(model, method="parallel_rts",
+                    options=ParallelOptions(nsub=NSUB, mode="discrete")
+                    ).solve(Problem.ragged(model, records))
+    dx = 0.0
+    for t, n, r in zip(tickets, lengths, ref):
+        sol = got[t]
+        if (tuple(sol.x.shape) != (n + 1, 4) or sol.x.device.type != "cuda"
+                or not bool(torch.isfinite(sol.x).all())):
+            raise AssertionError(f"trajectory engine ticket {t}: x "
+                                 f"{tuple(sol.x.shape)} on {sol.x.device}")
+        dx = max(dx, float((sol.x - r.x).abs().max()))
+    ok = dx < 1e-8
+    log(f"  every record, engine (parallel_kernel) vs Estimator "
+        f"parallel_rts on Problem.ragged (cuda): max|dx| {dx:.3e} (tol "
+        f"1e-8) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"trajectory engine: max|dx| {dx:.3e}")
+    occ = snap["histograms"]["engine.wave_occupancy"]
+    log(f"  drain: {RECORDS} records in {drain_s * 1e3:.3f} ms wall "
+        f"(submit + run, obs on) = {RECORDS / drain_s:.1f} records/s; "
+        f"{latency_line('engine.record_latency_seconds')}; mean wave "
+        f"occupancy {occ['mean']:.4f}; padding waste "
+        f"{snap['gauges']['engine.padding_waste']:.4f}; on {card()}")
+    obs.disable()
+    # one profiled wave of the largest bucket
+    big = max(counts)
+    wave = [r for r, n in zip(host, lengths) if n > big // 2][:ENGINE_BATCH]
+
+    def one_wave():
+        for t, y in wave:
+            eng.submit(t, y)
+        eng.step()
+        eng.collect()
+        torch.cuda.synchronize()
+
+    phase("trajectory engine profile")
+    profile_wave(f"one engine wave ({len(wave)} records, n_pad={big})",
+                 one_wave)
+    return wave_path(launches, shapes[:launches], 1, 4)
+
+
+def stream_pass(eng, ts, ys, late=None):
+    """Round-robin STREAM_CHUNK-interval pushes of every track, draining
+    after each round; ``late`` (a per-track boolean mask over the
+    intervals) holds those measurements back one round.  Returns the track
+    ids, windows solved and push summaries."""
+    N = ys[0].shape[0]
+    tids = [eng.open_track(float(ts[0])) for _ in ys]
+    windows, totals = 0, {"merged": 0, "dropped_late": 0, "offered": 0}
+    rounds = range(0, N + (STREAM_CHUNK if late is not None else 0),
+                   STREAM_CHUNK)
+    for i in rounds:
+        for k, (tid, y) in enumerate(zip(tids, ys)):
+            if late is None:
+                idx = np.arange(i, min(i + STREAM_CHUNK, N))
+            else:
+                prev = np.arange(max(0, i - STREAM_CHUNK), i)
+                cur = np.arange(i, min(i + STREAM_CHUNK, N))
+                idx = np.sort(np.concatenate(
+                    [prev[late[k][prev]], cur[~late[k][cur]]]))
+            if idx.size:
+                res = eng.push(tid, ts[idx + 1], y[idx])
+                totals["offered"] += idx.size
+                totals["merged"] += res["merged"]
+                totals["dropped_late"] += res["dropped_late"]
+        windows += eng.run()
+    return tids, windows, totals
+
+
+def streaming_linear_path(lqt_kernel, lqt_scan) -> dict:
+    """STREAM_TRACKS Wiener tracks of STREAM_N intervals through a
+    ``StreamingEngine`` (lag STREAM_LAG, waves of STREAM_BATCH,
+    ``parallel_kernel``): a warm-up pass on other tracks, the measured
+    in-order pass, then the late pass; each against offline solves."""
+    from repro_torch import obs
+    from repro_torch.configs.wiener_velocity import WienerVelocityConfig
+    from repro_torch.core import (
+        Estimator,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+        simulate_linear,
+        time_grid,
+    )
+    from repro_torch.serving import StreamingEngine
+
+    model = WienerVelocityConfig(p0=1.0).model(device="cuda")
+    N, dt = STREAM_N, 0.1
+    tsd = time_grid(0.0, N * dt, N, device="cuda")
+    gm = torch.Generator(device="cuda").manual_seed(SEED)
+    _, yd = simulate_linear(model, tsd[:, None].expand(-1, STREAM_TRACKS),
+                            gm)
+    _, yw = simulate_linear(model, tsd[:, None].expand(-1, STREAM_BATCH), gm)
+    ts = tsd.cpu().numpy()
+    ys = [y.numpy() for y in yd.movedim(1, 0).cpu()]
+    warm = [y.numpy() for y in yw.movedim(1, 0).cpu()]
+    opts = KernelOptions(nsub=NSUB, mode="discrete")
+    offline = Estimator(model, method="parallel_rts",
+                        options=ParallelOptions(nsub=NSUB, mode="discrete"))
+    gate = list(range(0, STREAM_TRACKS, STREAM_TRACKS // 4))
+    refs = {k: offline.solve(Problem.single(model, tsd, yd[:, k])).x.cpu()
+            for k in gate}
+    out = wave_path(0, [], 1, 4)
+
+    def measured(label, eng, keep, late=None):
+        shapes = recording_solves(eng.estimator)
+        obs.reset()
+        obs.enable()
+        lqt_kernel.reset_launch_count()
+        lqt_scan.reset_launch_count()
+        t0 = time.perf_counter()
+        tids, windows, totals = stream_pass(eng, ts, ys, late=late)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lqt_scan.launch_count()
+        snap = obs.snapshot()
+        c = snap["counters"]
+        log(f"{label}: {windows} windows in {eng.waves} waves "
+            f"({len(shapes)} solves), {wall * 1e3:.3f} ms wall = "
+            f"{windows / wall:.1f} windows/s; "
+            f"{latency_line('stream.window_latency_seconds')}; lqt_scan "
+            f"{launches}, lqt_combine {lqt_kernel.launch_count()}; waves per "
+            f"bucket {dict(sorted(collections.Counter(n for _, n in shapes).items()))}"
+            f"; evicted {c.get('stream.evicted_intervals', 0)}, late merges "
+            f"{c.get('stream.late_merges', 0)}, late drops "
+            f"{c.get('stream.late_drops', 0)}, deferred evictions "
+            f"{c.get('stream.deferred_evictions', 0)}, padding waste "
+            f"{snap['gauges']['stream.padding_waste']:.4f}, mean occupancy "
+            f"{snap['histograms']['stream.wave_occupancy']['mean']:.4f}; "
+            f"on {card()}")
+        if (launches != eng.waves or launches != len(shapes)
+                or lqt_kernel.launch_count()
+                or c.get("stream.late_drops", 0)):
+            raise AssertionError(
+                f"{label}: {launches} lqt_scan launches for {eng.waves} "
+                f"waves, {lqt_kernel.launch_count()} lqt_combine, late drops "
+                f"{c.get('stream.late_drops', 0)}")
+        worst = 0.0
+        for k in gate:
+            x = eng.estimate(tids[k]).x
+            ref = refs[k]
+            if (tuple(x.shape) != tuple(ref.shape)
+                    or not bool(torch.isfinite(x).all())):
+                raise AssertionError(f"{label} track {k}: x "
+                                     f"{tuple(x.shape)}")
+            err = float((x[-keep - 1:] - ref[-keep - 1:]).abs().max())
+            worst = max(worst, err / float(ref.abs().max()))
+        ok = worst < 1e-9
+        log(f"  final {keep + 1} states of tracks {gate} vs offline "
+            f"parallel_rts of the whole {N}-interval record (cuda): max "
+            f"|dx| / max|x| {worst:.3e} (tol 1e-9) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: window vs offline {worst:.3e}")
+        obs.disable()
+        done = wave_path(launches, shapes, 1, 4)
+        for key in ("launches", "scans", "shapes"):
+            out[key] += done[key]
+        return eng, tids
+
+    log(f"Wiener velocity (p0 = 1), {STREAM_TRACKS} tracks of {N} "
+        f"intervals (dt = {dt}), StreamingEngine(lag={STREAM_LAG}, "
+        f"batch={STREAM_BATCH}, method='parallel_kernel', discrete, "
+        f"float64), round-robin chunks of {STREAM_CHUNK} intervals, a drain "
+        f"after each round")
+    eng = StreamingEngine(model, lag=STREAM_LAG, batch=STREAM_BATCH,
+                          method="parallel_kernel", options=opts)
+    t0 = time.perf_counter()
+    wtids, wwin, _ = stream_pass(eng, ts, warm)
+    for tid in wtids:
+        eng.close(tid)
+    torch.cuda.synchronize()
+    log(f"  warm-up pass: {len(warm)} other tracks, {wwin} windows in "
+        f"{time.perf_counter() - t0:.2f} s")
+    eng.waves = 0
+    eng, tids = measured("in-order pass", eng, STREAM_LAG)
+
+    phase("streaming engine profile")
+    nxt = [(tid, y) for tid, y in zip(tids, ys)][:STREAM_BATCH]
+    extra = [0]
+
+    def one_wave():
+        # one more chunk for STREAM_BATCH tracks, past their records' end
+        t1 = ts[-1] + dt * (1 + np.arange(STREAM_CHUNK) + extra[0])
+        extra[0] += STREAM_CHUNK
+        for tid, y in nxt:
+            eng.push(tid, t1, y[:STREAM_CHUNK])
+        eng.step()
+        torch.cuda.synchronize()
+
+    profile_wave(f"one streaming wave ({STREAM_BATCH} windows of "
+                 f"~{STREAM_LAG + STREAM_CHUNK} intervals)", one_wave)
+
+    phase("streaming engine, late pass")
+    late_lag, slack = STREAM_CHUNK // 2, STREAM_CHUNK
+    rng = np.random.default_rng(SEED + 1)
+    held = [rng.random(N) < 0.10 for _ in ys]
+    log(f"late pass: lag {late_lag}, reorder_slack {slack}, 10 % of each "
+        f"track's measurements ({sum(int(h.sum()) for h in held)} in all) "
+        f"held back one round")
+    eng = StreamingEngine(model, lag=late_lag, batch=STREAM_BATCH,
+                          method="parallel_kernel", options=opts,
+                          reorder_slack=slack)
+    measured("late pass", eng, late_lag + slack, late=held)
+    return out
+
+
+def streaming_sigma_point_path(lqt_kernel, lqt_scan) -> dict:
+    """SP_STREAM_TRACKS coordinated-turn tracks through two
+    ``StreamingEngine(method="sigma_point")``s, the inner method
+    ``parallel_kernel`` and ``parallel_rts``, on the same pushes."""
+    from repro_torch import obs
+    from repro_torch.configs.coordinated_turn import CoordinatedTurnConfig
+    from repro_torch.core import (
+        KernelOptions,
+        ParallelOptions,
+        simulate_nonlinear,
+        time_grid,
+    )
+    from repro_torch.serving import StreamingEngine
+    from repro_torch.serving.waves import robust_default_options
+
+    cfg = CoordinatedTurnConfig()
+    model = cfg.model(device="cuda")
+    N = SP_STREAM_N
+    tsd = time_grid(cfg.t0, cfg.tf, N, device="cuda")
+    gm = torch.Generator(device="cuda").manual_seed(SEED)
+    _, yd = simulate_nonlinear(
+        model, tsd[:, None].expand(-1, SP_STREAM_TRACKS), gm)
+    ts = tsd.cpu().numpy()
+    ys = [y.numpy() for y in yd.movedim(1, 0).cpu()]
+    base = robust_default_options("sigma_point")
+    passes = base.iterations
+    log(f"coordinated turn, {SP_STREAM_TRACKS} tracks of {N} intervals "
+        f"(dt = {(cfg.tf - cfg.t0) / N}), StreamingEngine(lag={STREAM_LAG}, "
+        f"batch={STREAM_BATCH}, method='sigma_point', unscented, {passes} "
+        f"passes, discrete inner mode, float64), chunks of {STREAM_CHUNK}")
+    est = {}
+    for inner_method, inner in (
+            ("parallel_kernel", KernelOptions(nsub=NSUB, mode="discrete")),
+            ("parallel_rts", ParallelOptions(nsub=NSUB, mode="discrete"))):
+        eng = StreamingEngine(
+            model, lag=STREAM_LAG, batch=STREAM_BATCH, method="sigma_point",
+            options=base.replace(inner_method=inner_method, inner=inner))
+        shapes = recording_solves(eng.estimator)
+        obs.reset()
+        obs.enable()
+        lqt_kernel.reset_launch_count()
+        lqt_scan.reset_launch_count()
+        t0 = time.perf_counter()
+        tids, windows, _ = stream_pass(eng, ts, ys)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lqt_scan.launch_count()
+        log(f"{inner_method} inner: {windows} windows in {eng.waves} waves, "
+            f"{wall * 1e3:.3f} ms wall = {windows / wall:.1f} windows/s; "
+            f"{latency_line('stream.window_latency_seconds')}; lqt_scan "
+            f"{launches}, lqt_combine {lqt_kernel.launch_count()}; on "
+            f"{card()}")
+        want = eng.waves * passes if inner_method == "parallel_kernel" else 0
+        if launches != want or lqt_kernel.launch_count():
+            raise AssertionError(
+                f"sigma-point streaming ({inner_method}): {launches} "
+                f"lqt_scan launches, expected {want}; lqt_combine "
+                f"{lqt_kernel.launch_count()}")
+        obs.disable()
+        est[inner_method] = [eng.estimate(t).x for t in tids]
+        if inner_method == "parallel_kernel":
+            out = wave_path(launches, shapes, passes, 5)
+    dx = 0.0
+    for k, r in zip(est["parallel_kernel"], est["parallel_rts"]):
+        if tuple(k.shape) != (N + 1, 5) or not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"sigma-point streaming: x {tuple(k.shape)}")
+        dx = max(dx, float((k - r).abs().max()))
+    ok = dx < NL_KERNEL_TOL
+    log(f"  every track's final estimate, parallel_kernel inner vs "
+        f"parallel_rts inner: max|dx| {dx:.3e} (tol {NL_KERNEL_TOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"sigma-point streaming: max|dx| {dx:.3e}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 3h. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
 # ---------------------------------------------------------------------------
 
 def per_level_suffix_scan(elems):
@@ -1700,9 +2130,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("ragged path: Wiener velocity, pad-and-bucket")
     paths["ragged"] = ragged_path(lqt_kernel, lqt_scan, cells["estimation"])
-    del cells
     torch.cuda.empty_cache()
     log(f"sigma-point and ragged phases: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase("trajectory engine: the ragged cell's records in waves")
+    paths["trajectory_engine"] = trajectory_engine_path(
+        lqt_kernel, lqt_scan, cells["estimation"])
+    del cells
+    torch.cuda.empty_cache()
+    phase("streaming engine, linear")
+    paths["streaming"] = streaming_linear_path(lqt_kernel, lqt_scan)
+    torch.cuda.empty_cache()
+    phase("streaming engine, sigma point")
+    paths["streaming_sigma_point"] = streaming_sigma_point_path(
+        lqt_kernel, lqt_scan)
+    torch.cuda.empty_cache()
+    log(f"engine phases: {time.perf_counter() - t0:.1f} s")
 
     phase("lqt_scan timing at the estimation paths' scans")
     kernels = [scan_timing(g, lqt_scan, lqt_ref, paths)]

@@ -33,6 +33,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import obs
+
 from .nonlinear import iterated_solve
 from .options import IteratedOptions, SolverOptions
 from .padding import (
@@ -424,6 +426,16 @@ class Estimator:
         for a ragged problem, a list of per-record ``Solution``\\ s in
         submission order, each carrying the shared
         :class:`~repro_torch.core.types.PaddingReport`.
+
+        While :mod:`repro_torch.obs` is enabled (and ``diagnostics`` is on
+        -- the hot-serving opt-out also silences instrumentation) the
+        solve is measured: phase spans ``estimator.solve.{prepare,execute,
+        host_transfer}`` (``execute`` labelled for ``torch.profiler`` and
+        ended by a device synchronise on the card, so it times real work)
+        and the ``estimator.*``, ``nonlinear.*`` and ``linearize.*``
+        metrics.  The port has no executable cache, so there is no
+        ``compile`` phase and no ``cache.*`` metric.  Outputs are
+        bit-identical either way.
         """
         if problem.model is not self.model:
             raise ValueError(
@@ -431,6 +443,25 @@ class Estimator:
                 "the Problem with the same model instance")
         if problem.kind == "ragged":
             return self._solve_ragged(problem)
+        if not (self.diagnostics and obs.enabled()):
+            # hot path: no obs object touched, nothing synchronised
+            return self._execute(*self._prepare(problem))
+        with obs.trace_span("estimator.solve"):
+            with obs.trace_span("estimator.solve.prepare"):
+                args = self._prepare(problem)
+            with obs.trace_span("estimator.solve.execute",
+                                record_function=True):
+                out = self._execute(*args)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            with obs.trace_span("estimator.solve.host_transfer"):
+                self._record_solution_metrics(out)
+        return out
+
+    def _prepare(self, problem: Problem):
+        """The problem's tensors on the estimator's device and dtype, in
+        the solver layout: the record axis right after the time axis (a
+        single record is a batch of one)."""
         dtype = self._model.dtype
 
         def put(a):
@@ -442,8 +473,6 @@ class Estimator:
         x_init = put(problem.x_init)
         prior = None if problem.prior is None else tuple(
             put(a) for a in problem.prior)
-        # Record axis right after the time axis; a single record is a
-        # batch of one.
         single = problem.kind == "single"
         if single:
             ts, y = ts[:, None], y[:, None]
@@ -457,7 +486,11 @@ class Estimator:
             mask = None if mask is None else mask.T
             if x_init is not None:
                 x_init = self._stacked_x_init(x_init, B)
+        return single, ts, y, mask, x_init, prior
 
+    def _execute(self, single, ts, y, mask, x_init, prior) -> Solution:
+        """Run the method on prepared tensors; returns the surface
+        :class:`Solution`."""
         trace = steps = None
         if isinstance(self.model, NonlinearSDE):
             o = self.options
@@ -492,6 +525,26 @@ class Estimator:
             x=surface(sol.x), S=surface(sol.S), v=surface(sol.v),
             cov=surface(sol.cov), cost=per_record(cost),
             cost_trace=per_record(trace), step_norms=per_record(steps))
+
+    def _record_solution_metrics(self, sol: Solution) -> None:
+        """Read one solve's diagnostics into the registry (the measured
+        path only: each value is one device-to-host read)."""
+        obs.inc("estimator.solves")
+        if isinstance(self.options, IteratedOptions):
+            lin = self.options.linearization
+            obs.inc(f"linearize.{lin.obs_name}.solves")
+            obs.set_gauge("linearize.sigma_points",
+                          lin.num_points(self.model.nx))
+        if sol.cost is not None:
+            obs.record("estimator.final_cost", sol.cost.mean())
+        if sol.cost_trace is not None:
+            trace = sol.cost_trace
+            obs.set_gauge("nonlinear.iterations", trace.shape[-1])
+            obs.record("nonlinear.cost_decrease",
+                       (trace[..., 0] - trace[..., -1]).mean())
+        if sol.step_norms is not None:
+            obs.record("nonlinear.final_step_norm",
+                       sol.step_norms[..., -1].mean())
 
     def _solve_ragged(self, problem: Problem) -> List[Solution]:
         """Pad-and-bucket: one stacked solve per bucket of records padded
@@ -531,6 +584,14 @@ class Estimator:
                 out[i] = slice_solution(sol, row, lengths[i])
 
         report = PaddingReport(lengths=tuple(lengths), buckets=tuple(infos))
+        if self.diagnostics and obs.enabled():
+            obs.inc("padding.records", report.records)
+            obs.inc("padding.real_intervals", report.real_intervals)
+            obs.inc("padding.solved_intervals", report.solved_intervals)
+            obs.set_gauge("padding.interval_utilisation",
+                          report.interval_utilisation)
+            obs.set_gauge("padding.row_utilisation", report.row_utilisation)
+            obs.set_gauge("padding.waste", 1.0 - report.interval_utilisation)
         return [dataclasses.replace(s, padding=report) for s in out]
 
     @staticmethod

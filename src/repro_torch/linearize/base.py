@@ -62,6 +62,11 @@ class Linearization:
         ``has_residual`` is ``False``."""
         raise NotImplementedError
 
+    @property
+    def obs_name(self) -> str:
+        """Metric-taxonomy slug (``linearize.<obs_name>.*``)."""
+        return type(self).__name__.lower()
+
     def num_points(self, n: int) -> int:
         """Function evaluations per grid point (1 for derivative
         strategies; the sigma-point count for regression strategies)."""

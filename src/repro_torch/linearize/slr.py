@@ -31,6 +31,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import obs
+
 from .base import Linearization, register_linearization, vmap_points
 from .sigma_points import (
     Cubature,
@@ -121,7 +123,19 @@ class SLR(Linearization):
         if covs is None:
             raise ValueError(
                 "SLR needs per-point spread covariances on the grid")
-        return _regress(g, xb, tl, self.spread * covs, self.family)
+        if obs.enabled():
+            # regressions performed by this call (every grid point of
+            # every record); the reference counts once per trace
+            points = xb[..., 0].numel()
+            obs.inc("linearize.slr.regressions", points)
+            obs.inc("linearize.slr.sigma_points",
+                    points * self.family.num_points(xb.shape[-1]))
+        with obs.trace_span("slr"):
+            return _regress(g, xb, tl, self.spread * covs, self.family)
+
+    @property
+    def obs_name(self) -> str:
+        return self.family.name
 
     def num_points(self, n: int) -> int:
         return self.family.num_points(n)

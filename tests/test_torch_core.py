@@ -7,6 +7,7 @@ round-off (rtol 1e-10): the port keeps the reference's combine order (the
 same associative-scan tree) and its arithmetic up to LAPACK round-off.
 """
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from helpers import random_ltv, wiener_velocity
+from repro.core import clear_cache as jclear_cache
 from repro.core import combine as jcombine
 from repro.core import elements as jelements
 from repro.core import parallel as jparallel
@@ -432,3 +434,14 @@ def test_convert_round_trip(wiener_case):
     e = elements_from_numpy(_rand_elems(np.random.default_rng(1), 4, 2),
                             dtype=torch.float32)
     assert e.A.dtype == torch.float32 and e.A.device.type == "cpu"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_executables():
+    """Drop the JAX executables this module compiled once it ends: each
+    holds memory maps, and a test process that kept every module's
+    executables would reach the kernel's per-process map limit."""
+    yield
+    jclear_cache()
+    jax.clear_caches()
+    gc.collect()

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the LM kernels on the card,
 the whole-scan ``lqt_scan`` kernel against its plain scan, and the
 nonlinear estimation paths (the iterated Taylor and sigma-point
-smoothers) through it.
+smoothers) and the estimation serving engines (``TrajectoryEngine``,
+``StreamingEngine``) through it.
 
 They skip without a card.  This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -285,3 +286,94 @@ def test_sigma_point_kernel_inner_matches_plain_on_card(card):
     assert k.x.device.type == "cuda" and bool(torch.isfinite(k.x).all())
     assert bool(torch.isfinite(k.cost_trace).all())
     assert float((k.x - r.x).abs().max()) < 1e-8
+
+
+def _wiener_records(lengths, g):
+    """Wiener-velocity records of ``lengths`` intervals (dt = 0.1) from
+    the port's simulator on the CPU, as numpy arrays."""
+    from repro_torch.configs.wiener_velocity import WienerVelocityConfig
+    from repro_torch.core import simulate_linear
+
+    model = WienerVelocityConfig(p0=1.0).model()
+    out = []
+    for n in lengths:
+        ts = time_grid(0.0, 0.1 * n, n)
+        _, y = simulate_linear(model, ts, g)
+        out.append((ts.numpy(), y.numpy()))
+    return model, out
+
+
+@pytest.mark.gpu
+def test_trajectory_engine_kernel_on_card_matches_cpu(card):
+    """A small ``TrajectoryEngine`` with ``parallel_kernel`` on the card:
+    one ``lqt_scan`` launch per wave, no ``lqt_combine`` launch, and every
+    record equal to the same engine on the CPU at 1e-9 x scale."""
+    from repro_torch.serving import TrajectoryEngine
+
+    model, recs = _wiener_records([37, 120, 55, 300, 41, 260, 90],
+                                  torch.Generator().manual_seed(0))
+    opts = KernelOptions(nsub=10, mode="discrete")
+    sols = {}
+    for device in ("cuda", "cpu"):
+        eng = TrajectoryEngine(model, batch=4, method="parallel_kernel",
+                               options=opts, device=device)
+        before = lqt_scan.launch_count(), lqt_kernel.launch_count()
+        sols[device] = eng.estimate(recs)
+        torch.cuda.synchronize()
+        if device == "cuda":
+            assert lqt_scan.launch_count() - before[0] == eng.waves > 0
+            assert lqt_kernel.launch_count() == before[1]
+    for k, c in zip(sols["cuda"], sols["cpu"]):
+        assert k.x.device.type == "cuda"
+        scale = float(c.x.abs().max())
+        assert float((k.x.cpu() - c.x).abs().max()) < 1e-9 * scale
+
+
+@pytest.mark.gpu
+def test_streaming_engine_kernel_on_card_matches_cpu(card):
+    """Small ``StreamingEngine``s with ``parallel_kernel`` on the card (a
+    linear one, and a sigma-point one with the kernel as its inner
+    method): ``lqt_scan`` launches equal waves x passes, and the
+    estimates equal the same engines on the CPU at 1e-9 x scale."""
+    from repro_torch.serving import StreamingEngine
+    from repro_torch.serving.waves import robust_default_options
+
+    wiener, recs = _wiener_records([120] * 5,
+                                   torch.Generator().manual_seed(1))
+    cfg = CoordinatedTurnConfig()
+    ct = cfg.model()
+    ts = time_grid(0.0, 6.0, 60)
+    _, y = simulate_nonlinear(ct, ts[:, None].expand(-1, 3),
+                              torch.Generator().manual_seed(2))
+    ct_recs = [(ts.numpy(), y[:, i].numpy()) for i in range(3)]
+    sp = robust_default_options("sigma_point").replace(
+        inner_method="parallel_kernel",
+        inner=KernelOptions(nsub=10, mode="discrete"), iterations=3)
+    cases = (
+        (wiener, recs, dict(lag=30, batch=4, method="parallel_kernel",
+                            options=KernelOptions(nsub=10,
+                                                  mode="discrete")), 1, 20),
+        (ct, ct_recs, dict(lag=20, batch=4, method="sigma_point",
+                           options=sp), 3, 15))
+    for model, data, kw, passes, chunk in cases:
+        got = {}
+        for device in ("cuda", "cpu"):
+            eng = StreamingEngine(model, device=device, **kw)
+            tids = [eng.open_track(float(ts_[0])) for ts_, _ in data]
+            before = lqt_scan.launch_count(), lqt_kernel.launch_count()
+            for i in range(0, data[0][1].shape[0], chunk):
+                for tid, (ts_, y_) in zip(tids, data):
+                    eng.push(tid, ts_[i + 1:i + 1 + chunk],
+                             y_[i:i + chunk])
+                eng.run()
+            torch.cuda.synchronize()
+            if device == "cuda":
+                assert (lqt_scan.launch_count() - before[0]
+                        == eng.waves * passes > 0)
+                assert lqt_kernel.launch_count() == before[1]
+            got[device] = [eng.estimate(t) for t in tids]
+        for k, c in zip(got["cuda"], got["cpu"]):
+            assert k.x.device.type == "cpu"      # host-built readers
+            assert bool(torch.isfinite(k.x).all())
+            scale = float(c.x.abs().max())
+            assert float((k.x - c.x).abs().max()) < 1e-9 * scale

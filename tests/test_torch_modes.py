@@ -25,6 +25,7 @@ masked (J0 = 0) the reference returns non-finite values and the port
 raises, which a test pins.
 """
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,7 @@ import pytest
 import torch
 
 from helpers import random_ltv, wiener_velocity
+from repro.core import clear_cache as jclear_cache
 from repro.core import Estimator as JEstimator
 from repro.core import Problem as JProblem
 from repro.core import SequentialOptions as JSequentialOptions
@@ -362,3 +364,14 @@ def test_two_filter_options_and_registry():
     assert TwoFilterOptions() == TwoFilterOptions(
         nsub=10, mode="euler", block0_fill="affine", tf_fill="combine",
         jitter=1e-9)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_executables():
+    """Drop the JAX executables this module compiled once it ends: each
+    holds memory maps, and a test process that kept every module's
+    executables would reach the kernel's per-process map limit."""
+    yield
+    jclear_cache()
+    jax.clear_caches()
+    gc.collect()

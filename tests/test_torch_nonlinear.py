@@ -16,6 +16,7 @@ reference's outputs directly (not with ``test_x_init_warm_start``'s drift
 bound, which fails in the reference).
 """
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from helpers import coordinated_turn
+from repro.core import clear_cache as jclear_cache
 from repro.configs.coordinated_turn import CoordinatedTurnConfig as JCTConfig
 from repro.core import Estimator as JEstimator
 from repro.core import IteratedOptions as JIteratedOptions
@@ -503,3 +505,14 @@ def test_ambiguous_stacked_x_init_reads_per_record(ct):
     shared = est.solve(Problem.stacked(
         tm, ts, ys, x_init=np.repeat(x_init[None], B, axis=0)))
     assert not torch.equal(shared.x, a.x)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_executables():
+    """Drop the JAX executables this module compiled once it ends: each
+    holds memory maps, and a test process that kept every module's
+    executables would reach the kernel's per-process map limit."""
+    yield
+    jclear_cache()
+    jax.clear_caches()
+    gc.collect()

@@ -12,6 +12,7 @@ the ``Estimator`` solve they wrap bit for bit.  The port's
 ``parallel_kernel`` runs on the CPU through its kernel's plain version.
 """
 import dataclasses
+import gc
 
 import jax
 import numpy as np
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from helpers import coordinated_turn, wiener_velocity
+from repro.core import clear_cache as jclear_cache
 from repro.core import Estimator as JEstimator
 from repro.core import IteratedOptions as JIteratedOptions
 from repro.core import MAPSolution as JMAPSolution
@@ -457,3 +459,14 @@ def test_core_surface_matches_reference():
     missing = set(jcore.__all__) - not_yet - set(core.__all__)
     assert not missing, sorted(missing)
     assert not not_yet & set(core.__all__)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_executables():
+    """Drop the JAX executables this module compiled once it ends: each
+    holds memory maps, and a test process that kept every module's
+    executables would reach the kernel's per-process map limit."""
+    yield
+    jclear_cache()
+    jax.clear_caches()
+    gc.collect()

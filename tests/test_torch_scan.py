@@ -16,6 +16,7 @@ itself is compared with its plain version on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import clear_cache as jclear_cache
 from repro.core import pscan as jpscan
 from repro.core.combine import lqt_combine as jcombine
 from repro.core.types import LQTElement as JElem
@@ -266,3 +268,14 @@ def test_no_build_at_import_and_ptxas_parse():
     assert tscan._parse_ptxas(log) == [{
         "nx": 5, "dtype": "float64", "spill_stores": 116,
         "spill_loads": 176, "registers": 255}]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_executables():
+    """Drop the JAX executables this module compiled once it ends: each
+    holds memory maps, and a test process that kept every module's
+    executables would reach the kernel's per-process map limit."""
+    yield
+    jclear_cache()
+    jax.clear_caches()
+    gc.collect()

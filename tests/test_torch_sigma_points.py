@@ -14,6 +14,7 @@ SLR at 1e-12, the grid at 1e-10, solves at 1e-9.  Warm starts are compared
 with the reference's outputs directly, not with its drift bound.
 """
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from helpers import coordinated_turn
+from repro.core import clear_cache as jclear_cache
 from repro import linearize as jlin
 from repro.core import Estimator as JEstimator
 from repro.core import LinearSDE as JLinearSDE
@@ -472,3 +474,14 @@ def test_sigma_point_cost_not_worse_than_taylor(ct):
         sp = Estimator(tm, method="sigma_point", device="cpu",
                        options=_opts(True, linearization=lin)).solve(p)
         assert float(sp.cost) <= float(tay.cost) * (1 + 1e-6), lin
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_executables():
+    """Drop the JAX executables this module compiled once it ends: each
+    holds memory maps, and a test process that kept every module's
+    executables would reach the kernel's per-process map limit."""
+    yield
+    jclear_cache()
+    jax.clear_caches()
+    gc.collect()
