@@ -91,7 +91,33 @@ Phases, each of which fails the run on any miss:
                  ``parallel_rts``) on the same pushes: the scan launched
                  once per pass of each wave, the final estimates within
                  1e-8 of each other; windows/s and latency;
-3h. lqt timing -- the scan kernel at every path's scans
+3h. time-sharded -- ``Estimator(method="distributed")`` on meshes of
+                 P x cuda:0 (P = 2, 4, 8: every shard's scan, carry
+                 exchange and fix-up, on one card) for the estimation
+                 cell's single record and 64 records (2049 scan elements:
+                 the head/tail stitch) and a 20470-interval record (2048:
+                 divisible), against ``parallel_rts`` (1e-9) and
+                 ``parallel_kernel`` (1e-8) on the card and
+                 ``sequential_rts`` (1e-7) on the CPU; 2P counted shards
+                 and the ``distributed_scan`` span per solve, no kernel
+                 launch (the plain combine, as the reference), median
+                 solve times beside ``parallel_rts``'s; a float32 solve
+                 with a float64 carry scan (other bits than the
+                 float32-carry solve; its error printed); the
+                 default mesh's fallback (``"auto"`` equals
+                 ``parallel_rts``, ``"error"`` raises) on one card;
+3i. batch-sharded -- records split over a mesh's batch axis: stacked64
+                 through ``parallel_kernel`` on a batch axis of 4 (one
+                 scan launch per shard, < 1e-8 of the unsharded solve),
+                 ``distributed`` on a 4 x 2 (time x batch) mesh (< 1e-9 of
+                 ``parallel_rts``), the ragged cell's records through
+                 ``TrajectoryEngine(batch=16)`` on a batch axis of 2
+                 (launches = waves x 2, < 1e-8 of the ragged
+                 ``parallel_rts`` solve), and 64 Wiener tracks through
+                 ``StreamingEngine(lag=64, batch=64)`` on a batch axis of
+                 2 (launches = waves x 2, final windows < 1e-9 x scale of
+                 offline);
+3j. lqt timing -- the scan kernel at every path's scans
                  (CUDA events around a CUDA-graph replay of back-to-back
                  scans, eager calls beside), its bound, the per-launch bound
                  of the tree's combines it replaces, the plain scan, and a
@@ -168,6 +194,15 @@ ENGINE_BATCH = 16
 STREAM_TRACKS, STREAM_N, STREAM_LAG, STREAM_CHUNK, STREAM_BATCH = (
     256, 400, 64, 20, 64)
 SP_STREAM_TRACKS, SP_STREAM_N = 64, 200
+# sharded paths: time shards of method="distributed" on meshes that repeat
+# card 0, gated against parallel_rts at the reference's own bound (1e-9,
+# tests/test_distributed_method.py), against the kernel path (1e-8) and
+# sequential_rts (1e-7); record-axis shards of the stacked kernel solve;
+# the streaming pass's track length
+TIME_SHARDS = (2, 4, 8)
+DIST_TOL, DIST_KERNEL_TOL, DIST_SEQ_TOL = 1e-9, 1e-8, 1e-7
+BATCH_SHARDS = 4
+SHARD_STREAM_N = 200
 # kernel vs plain version: normwise relative error bound per dtype.  The
 # unpivoted Gauss-Jordan and the pivoted solve differ by round-off times
 # the conditioning of M = I + C1 J2 (at most a few hundred for these
@@ -769,6 +804,7 @@ def estimation_path(lqt_kernel, lqt_scan) -> tuple:
     _, yb = simulate_linear(model, ts[:, None].expand(-1, RECORDS), gm)
     problems = {"single": Problem.single(model, ts, y1),
                 "stacked64": Problem.stacked(model, ts, yb.movedim(1, 0))}
+    seq_x = {}
     torch.cuda.synchronize()
     log(f"Wiener velocity, T={N_BLOCKS} blocks x nsub={NSUB} (N={N}), "
         f"float64, records: single and {RECORDS} stacked")
@@ -806,6 +842,7 @@ def estimation_path(lqt_kernel, lqt_scan) -> tuple:
             raise AssertionError(f"{name}: x shape {tuple(sol.x.shape)}")
         refs = {"parallel_rts (cuda)": est_p.solve(p),
                 "sequential_rts (cpu reference)": est_s.solve(p)}
+        seq_x[name] = refs["sequential_rts (cpu reference)"].x
         for ref_name, ref in refs.items():
             dx = float((sol.x.cpu() - ref.x.cpu()).abs().max())
             ok = dx < 1e-8
@@ -837,7 +874,7 @@ def estimation_path(lqt_kernel, lqt_scan) -> tuple:
     return ({"launches": launches, "shapes": shapes, "nx": 4,
              "scans": [(N_BLOCKS + 1, 1), (N_BLOCKS + 1, RECORDS)],
              "pairwise_launches": lqt_kernel.launch_count()},
-            {"model": model, "ts": ts, "yb": yb})
+            {"model": model, "ts": ts, "yb": yb, "y1": y1, "seq_x": seq_x})
 
 
 # ---------------------------------------------------------------------------
@@ -1318,6 +1355,7 @@ def trajectory_engine_path(lqt_kernel, lqt_scan, cell: dict) -> dict:
     ref = Estimator(model, method="parallel_rts",
                     options=ParallelOptions(nsub=NSUB, mode="discrete")
                     ).solve(Problem.ragged(model, records))
+    cell["ragged_ref"] = [r.x for r in ref]
     dx = 0.0
     for t, n, r in zip(tickets, lengths, ref):
         sol = got[t]
@@ -1598,7 +1636,356 @@ def streaming_sigma_point_path(lqt_kernel, lqt_scan) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 3h. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
+# 3h-3i. the sharded paths: time axis (method="distributed"), record axis
+# ---------------------------------------------------------------------------
+
+def repeated_mesh(time=1, batch=1):
+    """A mesh of ``time x batch`` entries that all name card 0: every
+    shard's scan, carry exchange and fix-up runs as on a mesh of cards."""
+    from repro_torch.distributed import MeshSpec
+
+    return MeshSpec(time=time, batch=batch).build(
+        [torch.device("cuda", 0)] * (time * batch))
+
+
+def span_names(snap) -> set:
+    names = set()
+
+    def walk(nodes):
+        for nd in nodes:
+            names.add(nd["name"])
+            walk(nd.get("children", []))
+
+    walk(snap["span_trees"])
+    return names
+
+
+def time_sharded_path(lqt_kernel, lqt_scan, cell: dict) -> None:
+    """``Estimator(method="distributed")`` on meshes of P x cuda:0 for P in
+    TIME_SHARDS, on the estimation cell's single record and 64 records
+    (2049 elements: the head/tail stitch at every P) and a 20470-interval
+    record (2048 elements: divisible), against ``parallel_rts`` and
+    ``parallel_kernel`` on the card and ``sequential_rts`` on the CPU; the
+    shard counts and span, solve times, a float32 solve with a float64
+    carry scan, and the default mesh's fallback."""
+    from repro_torch import obs
+    from repro_torch.core import (
+        DistributedOptions,
+        Estimator,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+        SequentialOptions,
+    )
+
+    model, ts, yb, y1 = cell["model"], cell["ts"], cell["yb"], cell["y1"]
+    N = N_BLOCKS * NSUB
+    Nd = N - NSUB
+    problems = {"single": Problem.single(model, ts, y1),
+                "stacked64": Problem.stacked(model, ts, yb.movedim(1, 0)),
+                "single, 2048 elements": Problem.single(model, ts[:Nd + 1],
+                                                        y1[:Nd])}
+    dopts = DistributedOptions(nsub=NSUB, mode="discrete")
+    est_p = Estimator(model, method="parallel_rts",
+                      options=ParallelOptions(nsub=NSUB, mode="discrete"))
+    est_k = Estimator(model, method="parallel_kernel",
+                      options=KernelOptions(nsub=NSUB, mode="discrete"))
+    log(f"Wiener velocity, T={N_BLOCKS} blocks x nsub={NSUB} "
+        f"({N_BLOCKS + 1} scan elements) and T={Nd // NSUB} "
+        f"({Nd // NSUB + 1}), float64, discrete; meshes of "
+        f"P x cuda:0 for P in {TIME_SHARDS}; torch.cuda.device_count() "
+        f"{torch.cuda.device_count()}; on {card()}")
+    refs = {}
+    for name, p in problems.items():
+        refs[name] = {"parallel_rts (cuda)": (est_p.solve(p).x, DIST_TOL),
+                      "parallel_kernel (cuda)": (est_k.solve(p).x,
+                                                 DIST_KERNEL_TOL)}
+    seq = Estimator(model, method="sequential_rts",
+                    options=SequentialOptions(mode="discrete"), device="cpu")
+    refs["single"]["sequential_rts (cpu)"] = (cell["seq_x"]["single"],
+                                              DIST_SEQ_TOL)
+    refs["stacked64"]["sequential_rts (cpu)"] = (cell["seq_x"]["stacked64"],
+                                                 DIST_SEQ_TOL)
+    p = problems["single, 2048 elements"]
+    refs["single, 2048 elements"]["sequential_rts (cpu)"] = (
+        seq.solve(Problem.single(model, p.ts.cpu(), p.y.cpu())).x,
+        DIST_SEQ_TOL)
+    torch.cuda.synchronize()
+
+    base_ms = {name: median_solve_ms(est_p, p)
+               for name, p in problems.items()}
+    solve_ms = {}
+    for P in TIME_SHARDS:
+        est = Estimator(model, method="distributed", options=dopts,
+                        mesh=repeated_mesh(time=P))
+        for name, p in problems.items():
+            obs.reset()
+            obs.enable()
+            lqt_kernel.reset_launch_count()
+            lqt_scan.reset_launch_count()
+            sol = est.solve(p)
+            snap = obs.snapshot(include_trees=True)
+            obs.disable()
+            c = snap["counters"]
+            shards, spans = c.get("distributed.shards"), span_names(snap)
+            if (shards != 2 * P or "distributed_scan" not in spans
+                    or lqt_scan.launch_count() or lqt_kernel.launch_count()):
+                raise AssertionError(
+                    f"distributed P={P} {name}: distributed.shards {shards} "
+                    f"(want {2 * P}), span distributed_scan "
+                    f"{'distributed_scan' in spans}, kernel launches "
+                    f"{lqt_scan.launch_count()} / "
+                    f"{lqt_kernel.launch_count()} (want 0: the plain "
+                    f"combine, as the reference)")
+            if (sol.x.device.type != "cuda" or sol.x.dtype != torch.float64
+                    or not bool(torch.isfinite(sol.x).all())):
+                raise AssertionError(f"distributed P={P} {name}: x on "
+                                     f"{sol.x.device}, {sol.x.dtype}")
+            errs = []
+            for ref_name, (x, tol) in refs[name].items():
+                dx = float((sol.x.cpu() - x.cpu()).abs().max())
+                ok = bool(torch.allclose(sol.x.cpu(), x.cpu(), rtol=tol,
+                                         atol=tol))
+                errs.append(f"vs {ref_name} max|dx| {dx:.3e} (rtol=atol "
+                            f"{tol:.0e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"distributed P={P} {name}: "
+                                         f"max|dx| {dx:.3e} vs {ref_name}")
+            ms = median_solve_ms(est, p)
+            solve_ms[(P, name)] = ms
+            log(f"  P={P} {name}: distributed.shards {shards}, carry bytes "
+                f"{c.get('distributed.carry_bytes')}; " + "; ".join(errs)
+                + f"; median {ms:.3f} ms (parallel_rts {base_ms[name]:.3f} ms"
+                f"; 5 runs, CUDA events)")
+
+    phase("time-sharded profile")
+    P = TIME_SHARDS[-1]
+    for name in ("single", "stacked64"):
+        profile_summary(f"{name} distributed, P={P} x cuda:0",
+                        lambda: est.solve(problems[name]),
+                        solve_ms[(P, name)])
+
+    phase("time-sharded path in float32, float64 carry scan")
+    m32 = model.to(dtype=torch.float32)
+    p32 = Problem.single(m32, ts, y1)
+    e32 = Estimator(m32, method="distributed", mesh=repeated_mesh(time=4),
+                    options=DistributedOptions(nsub=NSUB, mode="discrete",
+                                               carry_dtype="float64"))
+    x32 = e32.solve(p32).x
+    if x32.dtype != torch.float32 or tuple(x32.shape) != (N + 1, 4):
+        raise AssertionError(f"float32 distributed solve: x {x32.dtype} "
+                             f"{tuple(x32.shape)}")
+    # the float32 carry scan (carry_dtype left at its default) must give
+    # other bits: the float64 carry really ran
+    x32_own = Estimator(m32, method="distributed", mesh=repeated_mesh(time=4),
+                        options=DistributedOptions(nsub=NSUB,
+                                                   mode="discrete")).solve(
+        p32).x
+    if torch.equal(x32, x32_own):
+        raise AssertionError("carry_dtype='float64' left the float32 solve "
+                             "bit-identical to the float32-carry solve")
+    x64 = refs["single"]["parallel_rts (cuda)"][0]
+    err = float((x32.double() - x64).abs().max())
+    err_own = float((x32_own.double() - x64).abs().max())
+    log(f"  P=4 single, float32 elements, carry_dtype='float64': x stays "
+        f"float32, finite {bool(torch.isfinite(x32).all())}, differs from "
+        f"the float32-carry solve; max|dx| vs the float64 solve {err:.3e} "
+        f"(float32 carry {err_own:.3e}; max|x| "
+        f"{float(x64.abs().max()):.3e}; printed, not gated)")
+
+    phase("time-sharded path: the default mesh")
+    n = torch.cuda.device_count()
+    p = problems["single"]
+    auto = Estimator(model, method="distributed", options=dopts)
+    if n < 2:
+        sd, sp = auto.solve(p), est_p.solve(p)
+        same = all(torch.equal(getattr(sd, f), getattr(sp, f))
+                   for f in ("x", "S", "v"))
+        log(f"  {n} visible card: the default mesh has < 2 time shards; "
+            f"fallback='auto' equals parallel_rts bit for bit: {same}")
+        if not same:
+            raise AssertionError("fallback='auto' differs from parallel_rts")
+        try:
+            Estimator(model, method="distributed",
+                      options=DistributedOptions(nsub=NSUB, mode="discrete",
+                                                 fallback="error")).solve(p)
+        except RuntimeError as exc:
+            log(f"  fallback='error' raises: {exc}")
+        else:
+            raise AssertionError("fallback='error' did not raise")
+    else:
+        obs.reset()
+        obs.enable()
+        dx = float((auto.solve(p).x - refs["single"][
+            "parallel_rts (cuda)"][0]).abs().max())
+        shards = obs.snapshot()["counters"].get("distributed.shards")
+        obs.disable()
+        log(f"  {n} visible cards: the default mesh shards over them: "
+            f"distributed.shards {shards}, max|dx| {dx:.3e}")
+        if shards != 2 * n or dx > DIST_TOL:
+            raise AssertionError(f"default mesh over {n} cards: shards "
+                                 f"{shards}, max|dx| {dx:.3e}")
+
+
+def batch_sharded_path(lqt_kernel, lqt_scan, cell: dict) -> dict:
+    """Records split over a mesh's batch axis: stacked64 through
+    ``parallel_kernel`` on ``MeshSpec(batch=4)`` (one scan launch per
+    shard), ``distributed`` on ``MeshSpec(time=4, batch=2)``, the ragged
+    cell's records through ``TrajectoryEngine(batch=16)`` on a batch axis
+    of 2 (a launch per wave and shard), and a short ``StreamingEngine``
+    pass on a batch axis of 2.  Returns the scan kernel's launch count and
+    scans on the path."""
+    from repro_torch import obs
+    from repro_torch.configs.wiener_velocity import WienerVelocityConfig
+    from repro_torch.core import (
+        DistributedOptions,
+        Estimator,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+        simulate_linear,
+        time_grid,
+    )
+    from repro_torch.serving import StreamingEngine, TrajectoryEngine
+
+    model, ts, yb = cell["model"], cell["ts"], cell["yb"]
+    stacked = Problem.stacked(model, ts, yb.movedim(1, 0))
+    kopts = KernelOptions(nsub=NSUB, mode="discrete")
+    est_k = Estimator(model, method="parallel_kernel", options=kopts)
+    est_s = Estimator(model, method="parallel_kernel", options=kopts,
+                      mesh=repeated_mesh(batch=BATCH_SHARDS))
+    out = {"launches": 0, "scans": [], "nx": 4, "shapes": [],
+           "pairwise_launches": 0}
+
+    def add(launches, scans):
+        out["launches"] += launches
+        out["scans"] += scans
+        out["shapes"] += [c for n, r in scans for c in scan_lane_counts(n, r)]
+
+    log(f"stacked64 through parallel_kernel on a batch axis of "
+        f"{BATCH_SHARDS} x cuda:0, on {card()}")
+    lqt_kernel.reset_launch_count()
+    lqt_scan.reset_launch_count()
+    sol = est_s.solve(stacked)
+    torch.cuda.synchronize()
+    launches = lqt_scan.launch_count()
+    if launches != BATCH_SHARDS or lqt_kernel.launch_count():
+        raise AssertionError(f"batch-sharded stacked64: {launches} lqt_scan "
+                             f"launches (want {BATCH_SHARDS}), "
+                             f"{lqt_kernel.launch_count()} lqt_combine")
+    add(launches, [(N_BLOCKS + 1, RECORDS // BATCH_SHARDS)] * BATCH_SHARDS)
+    want = est_k.solve(stacked)
+    dx = float((sol.x - want.x).abs().max())
+    ok = (dx < 1e-8 and tuple(sol.x.shape) == tuple(want.x.shape)
+          and all(torch.allclose(getattr(sol, f), getattr(want, f),
+                                 rtol=1e-9, atol=1e-8) for f in ("S", "v")))
+    ms, ms0 = median_solve_ms(est_s, stacked), median_solve_ms(est_k, stacked)
+    log(f"  lqt_scan {launches} (one per shard of {RECORDS // BATCH_SHARDS} "
+        f"records), lqt_combine 0; vs the unsharded solve: max|dx| "
+        f"{dx:.3e} (tol 1e-8), S/v rtol 1e-9 {'ok' if ok else 'FAIL'}; "
+        f"median {ms:.3f} ms (unsharded {ms0:.3f} ms; 5 runs, CUDA events)")
+    if not ok:
+        raise AssertionError(f"batch-sharded stacked64: max|dx| {dx:.3e}")
+    profile_summary(f"stacked64 parallel_kernel on a batch axis of "
+                    f"{BATCH_SHARDS}", lambda: est_s.solve(stacked), ms)
+
+    phase("batch-sharded path: distributed on a 4 x 2 mesh")
+    est_d = Estimator(model, method="distributed", mesh=repeated_mesh(4, 2),
+                      options=DistributedOptions(nsub=NSUB, mode="discrete"))
+    obs.reset()
+    obs.enable()
+    lqt_scan.reset_launch_count()
+    sol = est_d.solve(stacked)
+    shards = obs.snapshot()["counters"].get("distributed.shards")
+    obs.disable()
+    ref = Estimator(model, method="parallel_rts", options=ParallelOptions(
+        nsub=NSUB, mode="discrete")).solve(stacked)
+    dx = float((sol.x - ref.x).abs().max())
+    ok = (bool(torch.allclose(sol.x, ref.x, rtol=DIST_TOL, atol=DIST_TOL))
+          and shards == 2 * 4 * 2 and not lqt_scan.launch_count())
+    ms = median_solve_ms(est_d, stacked)
+    log(f"  MeshSpec(time=4, batch=2): distributed.shards {shards} (2 scans "
+        f"x 4 shards x 2 batch shards), lqt_scan {lqt_scan.launch_count()}; "
+        f"vs parallel_rts max|dx| {dx:.3e} (rtol=atol {DIST_TOL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}; median {ms:.3f} ms")
+    if not ok:
+        raise AssertionError(f"2-D mesh: max|dx| {dx:.3e}, shards {shards}")
+
+    phase("batch-sharded path: trajectory engine on a batch axis of 2")
+    lengths = [int(n) for n in np.random.default_rng(SEED).integers(
+        *RAGGED_LENGTHS, size=RECORDS, endpoint=True)]
+    host = [(ts[:n + 1].cpu().numpy(), yb[:n, i].cpu().numpy())
+            for i, n in enumerate(lengths)]
+    eng = TrajectoryEngine(model, batch=ENGINE_BATCH, method="parallel_kernel",
+                           options=kopts, mesh=repeated_mesh(batch=2))
+    shapes = recording_solves(eng.estimator)
+    lqt_kernel.reset_launch_count()
+    lqt_scan.reset_launch_count()
+    t0 = time.perf_counter()
+    tickets = [eng.submit(t, y) for t, y in host]
+    eng.run()
+    torch.cuda.synchronize()
+    drain = time.perf_counter() - t0
+    launches = lqt_scan.launch_count()
+    got = dict(eng.collect(tickets=tickets))
+    dx = max(float((got[t].x - r).abs().max())
+             for t, r in zip(tickets, cell["ragged_ref"]))
+    ok = (launches == 2 * eng.waves and not lqt_kernel.launch_count()
+          and len(got) == RECORDS and dx < 1e-8)
+    log(f"  {eng.waves} waves of {ENGINE_BATCH}: lqt_scan {launches} (want "
+        f"waves x 2), lqt_combine {lqt_kernel.launch_count()}; every record "
+        f"vs the ragged parallel_rts solve: max|dx| {dx:.3e} (tol 1e-8) "
+        f"{'ok' if ok else 'FAIL'}; drain {drain * 1e3:.3f} ms wall")
+    if not ok:
+        raise AssertionError(f"sharded trajectory engine: {launches} "
+                             f"launches for {eng.waves} waves, max|dx| "
+                             f"{dx:.3e}")
+    add(launches, [(n // NSUB + 1, b // 2) for b, n in shapes for _ in (0, 1)])
+
+    phase("batch-sharded path: streaming engine on a batch axis of 2")
+    smodel = WienerVelocityConfig(p0=1.0).model(device="cuda")
+    N, dt = SHARD_STREAM_N, 0.1
+    tsd = time_grid(0.0, N * dt, N, device="cuda")
+    gm = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    _, yd = simulate_linear(smodel, tsd[:, None].expand(-1, STREAM_BATCH), gm)
+    sts = tsd.cpu().numpy()
+    ys = [y.numpy() for y in yd.movedim(1, 0).cpu()]
+    eng = StreamingEngine(smodel, lag=STREAM_LAG, batch=STREAM_BATCH,
+                          method="parallel_kernel", options=kopts,
+                          mesh=repeated_mesh(batch=2))
+    shapes = recording_solves(eng.estimator)
+    lqt_kernel.reset_launch_count()
+    lqt_scan.reset_launch_count()
+    t0 = time.perf_counter()
+    tids, windows, _ = stream_pass(eng, sts, ys)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lqt_scan.launch_count()
+    offline = Estimator(smodel, method="parallel_rts",
+                        options=ParallelOptions(nsub=NSUB, mode="discrete"))
+    worst = 0.0
+    for k in range(0, STREAM_BATCH, STREAM_BATCH // 4):
+        x = eng.estimate(tids[k]).x
+        r = offline.solve(Problem.single(smodel, tsd, yd[:, k])).x.cpu()
+        err = float((x[-STREAM_LAG - 1:] - r[-STREAM_LAG - 1:]).abs().max())
+        worst = max(worst, err / float(r.abs().max()))
+    ok = (launches == 2 * eng.waves == 2 * len(shapes)
+          and not lqt_kernel.launch_count() and worst < 1e-9)
+    log(f"  {STREAM_BATCH} tracks x {N} intervals, lag {STREAM_LAG}, chunks "
+        f"of {STREAM_CHUNK}: {windows} windows in {eng.waves} waves, "
+        f"{wall * 1e3:.3f} ms wall; lqt_scan {launches} (want waves x 2); "
+        f"final windows vs offline parallel_rts: max|dx| / max|x| "
+        f"{worst:.3e} (tol 1e-9) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"sharded streaming engine: {launches} "
+                             f"launches for {eng.waves} waves, window error "
+                             f"{worst:.3e}")
+    add(launches, [(n // NSUB + 1, b // 2) for b, n in shapes for _ in (0, 1)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 3j. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
 # ---------------------------------------------------------------------------
 
 def per_level_suffix_scan(elems):
@@ -2137,7 +2524,6 @@ def main() -> int:
     phase("trajectory engine: the ragged cell's records in waves")
     paths["trajectory_engine"] = trajectory_engine_path(
         lqt_kernel, lqt_scan, cells["estimation"])
-    del cells
     torch.cuda.empty_cache()
     phase("streaming engine, linear")
     paths["streaming"] = streaming_linear_path(lqt_kernel, lqt_scan)
@@ -2147,6 +2533,17 @@ def main() -> int:
         lqt_kernel, lqt_scan)
     torch.cuda.empty_cache()
     log(f"engine phases: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase("time-sharded path: method='distributed' on P x cuda:0")
+    time_sharded_path(lqt_kernel, lqt_scan, cells["estimation"])
+    torch.cuda.empty_cache()
+    phase("batch-sharded path: stacked64 on a batch axis")
+    paths["batch_sharded"] = batch_sharded_path(lqt_kernel, lqt_scan,
+                                                cells["estimation"])
+    del cells
+    torch.cuda.empty_cache()
+    log(f"sharded phases: {time.perf_counter() - t0:.1f} s")
 
     phase("lqt_scan timing at the estimation paths' scans")
     kernels = [scan_timing(g, lqt_scan, lqt_ref, paths)]

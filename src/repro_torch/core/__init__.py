@@ -10,7 +10,10 @@ A :class:`NonlinearSDE` model is solved by iterated linearisation
 (:class:`IteratedOptions` wraps the inner method's options;
 ``method="sigma_point"`` with :class:`SigmaPointOptions` is the
 posterior-linearisation smoother).  Records of unequal lengths are solved
-by pad-and-bucket (:meth:`Problem.ragged`).  The old function entry points
+by pad-and-bucket (:meth:`Problem.ragged`).  ``Estimator(..., mesh=...)``
+spreads records over a device mesh's batch axis, and
+``method="distributed"`` (:class:`DistributedOptions`) the time axis over
+its time axis (:mod:`repro_torch.distributed`).  The old function entry points
 (``map_estimate`` & co.) remain as deprecation shims.
 """
 from .api import map_estimate
@@ -25,6 +28,7 @@ from .combine import (
 from .estimator import Estimator, Problem, legacy_options, resolve_device
 from .nonlinear import iterated_map, iterated_solve
 from .options import (
+    DistributedOptions,
     IteratedOptions,
     KernelOptions,
     ParallelOptions,
@@ -36,7 +40,13 @@ from .options import (
 from .oracle import qp_map_estimate, qp_map_from_grid
 from .padding import bucket_length, pad_record, slice_solution
 from .parallel import parallel_backward, parallel_rts, parallel_two_filter
-from .pscan import associative_scan, prefix_scan, suffix_scan
+from .pscan import (
+    associative_scan,
+    distributed_scan,
+    prefix_scan,
+    sharded_scan,
+    suffix_scan,
+)
 from .registry import (
     MethodSpec,
     get_method,
@@ -78,6 +88,7 @@ from .types import (
 __all__ = [
     "AffineElement",
     "BucketInfo",
+    "DistributedOptions",
     "Estimator",
     "GridLQT",
     "IteratedOptions",
@@ -103,6 +114,7 @@ __all__ = [
     "associative_scan",
     "bucket_length",
     "build_grid_lqt",
+    "distributed_scan",
     "elem_min_initial",
     "get_method",
     "get_solver",
@@ -131,6 +143,7 @@ __all__ = [
     "sequential_backward",
     "sequential_rts",
     "sequential_two_filter",
+    "sharded_scan",
     "simulate_linear",
     "simulate_nonlinear",
     "slice_solution",

@@ -4,8 +4,8 @@
 * ragged records  -> ``Estimator.solve(Problem.ragged(model, records))``
 
 Each function below emits a ``DeprecationWarning`` and builds the
-equivalent ``Problem``/``Estimator``.  ``mesh``/``batch_axis`` take
-``None`` only: the port has no sharding yet.
+equivalent ``Problem``/``Estimator``; ``mesh``/``batch_axis`` go to the
+Estimator.
 """
 from __future__ import annotations
 
@@ -22,14 +22,12 @@ Model = Union[LinearSDE, NonlinearSDE]
 def _legacy_estimator(model, method, nsub, mode, iterations,
                       divergence_correction, mesh, batch_axis,
                       device) -> Estimator:
-    if mesh is not None or batch_axis is not None:
-        raise NotImplementedError(
-            "mesh/batch_axis: the port has no sharding yet; pass None")
     return Estimator(
         model, method=method, device=device,
         options=legacy_options(model, method, nsub=nsub, mode=mode,
                                iterations=iterations,
-                               divergence_correction=divergence_correction))
+                               divergence_correction=divergence_correction),
+        mesh=mesh, batch_axis=batch_axis)
 
 
 def map_estimate_batched(
@@ -44,7 +42,7 @@ def map_estimate_batched(
     divergence_correction: bool = False,
     measurement_mask=None,
     mesh=None,
-    batch_axis=None,
+    batch_axis: str = "data",
     device=None,
 ) -> Solution:
     """Deprecated shim: use ``Estimator(...).solve(Problem.stacked(...))``."""
@@ -70,7 +68,7 @@ def map_estimate_ragged(
     bucket_sizes: Optional[Sequence[int]] = None,
     pad_batch: bool = True,
     mesh=None,
-    batch_axis=None,
+    batch_axis: str = "data",
     device=None,
 ) -> List[Solution]:
     """Deprecated shim: use ``Estimator(...).solve(Problem.ragged(...))``."""

@@ -8,9 +8,12 @@
   validate shapes up front.
 * :class:`~repro_torch.core.options.SolverOptions` subclasses describe HOW;
   each registered method owns its options dataclass.
-* :class:`Estimator` binds (model, method, options, device).  ``device``
-  defaults to ``"cuda"``; without a card it raises unless the caller asks
-  for ``device="cpu"``.
+* :class:`Estimator` binds (model, method, options, device, mesh).
+  ``device`` defaults to ``"cuda"``; without a card it raises unless the
+  caller asks for ``device="cpu"``.  A ``mesh``
+  (:class:`repro_torch.distributed.MeshSpec`) spreads stacked records
+  over its batch axis and, with ``method="distributed"``, the time axis
+  over its time axis.
 * :class:`~repro_torch.core.types.Solution` is the result, with the
   Onsager-Machlup cost of the estimate (and, for nonlinear models, the cost
   and step-norm traces of the iterations; for ragged problems, the
@@ -29,14 +32,21 @@ one), so each scan level is one batched operation -- one kernel launch for
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed.sharding import (
+    as_mesh,
+    canonical_device,
+    resolve_time_mesh,
+    shard_over_batch,
+)
 
 from .nonlinear import iterated_solve
-from .options import IteratedOptions, SolverOptions
+from .options import DistributedOptions, IteratedOptions, SolverOptions
 from .padding import (
     _tensor,
     bucket_length,
@@ -308,7 +318,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Estimator:
-    """MAP estimation for one model + method + options on one device.
+    """MAP estimation for one model + method + options on a device or a
+    mesh of devices.
 
     Args:
       model: :class:`LinearSDE` or :class:`NonlinearSDE`; problems passed
@@ -319,13 +330,27 @@ class Estimator:
       options: instance of the method's options class; for nonlinear
         models either that or an :class:`IteratedOptions` wrapping it.
         ``None`` means all defaults.
-      device: where the solve runs; ``None`` means ``"cuda"``.
+      device: where the solve runs and its results land (the home
+        device); ``None`` means ``"cuda"``, or the mesh's first device
+        when a mesh is given (another device then raises).
+      mesh: ``None``, a :class:`repro_torch.distributed.Mesh` or a
+        :class:`~repro_torch.distributed.MeshSpec` (built on the distinct
+        devices of ``device``'s type; build it with an explicit device
+        list, which may repeat a device, for anything else).  Stacked
+        records are split over ``mesh.shape[batch_axis]`` devices;
+        ``method="distributed"`` also shards the time axis over the mesh
+        axis its options name (an ambient ``MeshSpec.activate()`` mesh is
+        used when this mesh has no such axis), and splits the records over
+        the first of its ``batch_axes`` on the mesh.
+      batch_axis: the mesh axis that splits the records of
+        non-distributed methods.
       diagnostics: compute ``Solution.cost`` (and the iteration traces of
         nonlinear solves; default); ``False`` skips them.
     """
 
     def __init__(self, model: Model, *, method: str = "parallel_rts",
-                 options=None, device=None, diagnostics: bool = True):
+                 options=None, device=None, mesh=None,
+                 batch_axis: str = "data", diagnostics: bool = True):
         self._spec = get_method(method)
         self.model = model
         self.method = method
@@ -335,9 +360,29 @@ class Estimator:
         # other method IS the grid solver.
         self._grid_spec = (get_method(self.options.inner_method)
                            if self._spec.nonlinear else self._spec)
+        self._distributed = issubclass(self._grid_spec.options_cls,
+                                       DistributedOptions)
+        self.mesh = as_mesh(mesh, device_type=torch.device(
+            "cuda" if device is None else device).type)
+        self.batch_axis = batch_axis
+        if self.mesh is not None:
+            home = self.mesh.devices.flat[0]
+            if device is not None and canonical_device(device) != home:
+                raise ValueError(
+                    f"device {device!r} is not the mesh's first device "
+                    f"{home}; pass device=None or that device")
+            device = home
         self.device = resolve_device(device)
         self.diagnostics = diagnostics
-        self._model = model.to(device=self.device)
+        self._models = {}
+        self._model = self._model_on(self.device)
+
+    def _model_on(self, device: torch.device) -> Model:
+        """The model's tensors on ``device`` (one copy per device)."""
+        key = str(device)
+        if key not in self._models:
+            self._models[key] = self.model.to(device=device)
+        return self._models[key]
 
     def _resolve_options(self, options):
         cls = self._spec.options_cls
@@ -412,10 +457,57 @@ class Estimator:
     def block_size(self) -> int:
         """Grid-length multiple required by the method (``nsub`` for
         parallel methods, 1 otherwise) -- the bucketing unit."""
+        return getattr(self._method_options(), "nsub", 1)
+
+    # -- mesh plumbing ------------------------------------------------------
+
+    def _method_options(self):
+        """The method-level options (unwrapping ``IteratedOptions``)."""
         o = self.options
-        if isinstance(o, IteratedOptions):
-            o = o.inner
-        return getattr(o, "nsub", 1)
+        return o.inner if isinstance(o, IteratedOptions) else o
+
+    def _resolved_mesh(self):
+        """The mesh this solve runs under, resolved once per solve and
+        handed to the solver: ``self.mesh`` for every method but
+        ``distributed``, which takes ``self.mesh`` if it has the time axis,
+        else the ambient ``MeshSpec.activate()`` one, else a default
+        time-only mesh (``None`` = the single-device fallback)."""
+        if not self._distributed:
+            return self.mesh
+        o = self._method_options()
+        return resolve_time_mesh(o.time_axis,
+                                 devices_per_time=o.devices_per_time,
+                                 mesh=self.mesh,
+                                 device_type=self.device.type)
+
+    def _batch_spmd_axis(self, mesh) -> Optional[str]:
+        """The mesh axis a stacked batch is split over: ``batch_axis`` for
+        most methods; for ``distributed`` the first of its options'
+        ``batch_axes`` on the mesh (so the same options serve time-only
+        and 2-D meshes)."""
+        if mesh is None:
+            return None
+        if not self._distributed:
+            return self.batch_axis if self.batch_axis in mesh.axis_names \
+                else None
+        o = self._method_options()
+        for a in o.batch_axes:
+            if a in mesh.axis_names and a != o.time_axis:
+                return a
+        return None
+
+    def _batch_shard_size(self, mesh) -> int:
+        """Devices the stacked record axis spreads over (1 = unsharded)."""
+        axis = self._batch_spmd_axis(mesh)
+        return 1 if axis is None else mesh.shape[axis]
+
+    def _synchronize(self, mesh) -> None:
+        devices = {self.device}
+        if mesh is not None:
+            devices.update(mesh.devices.flat)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def solve(self, problem: Problem):
         """Solve a :class:`Problem`.
@@ -443,25 +535,31 @@ class Estimator:
                 "the Problem with the same model instance")
         if problem.kind == "ragged":
             return self._solve_ragged(problem)
+        mesh = self._resolved_mesh()
         if not (self.diagnostics and obs.enabled()):
             # hot path: no obs object touched, nothing synchronised
-            return self._execute(*self._prepare(problem))
+            fn, args = self._prepare(problem, mesh)
+            return fn(*args)
         with obs.trace_span("estimator.solve"):
             with obs.trace_span("estimator.solve.prepare"):
-                args = self._prepare(problem)
+                fn, args = self._prepare(problem, mesh)
             with obs.trace_span("estimator.solve.execute",
                                 record_function=True):
-                out = self._execute(*args)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                out = fn(*args)
+                self._synchronize(mesh)
             with obs.trace_span("estimator.solve.host_transfer"):
                 self._record_solution_metrics(out)
         return out
 
-    def _prepare(self, problem: Problem):
-        """The problem's tensors on the estimator's device and dtype, in
-        the solver layout: the record axis right after the time axis (a
-        single record is a batch of one)."""
+    def _prepare(self, problem: Problem, mesh):
+        """``(fn, args)``: the problem's tensors on the estimator's device
+        and dtype, in the solver layout -- the record axis right after the
+        time axis (a single record is a batch of one) -- and the function
+        that solves them on the resolved ``mesh``: :meth:`_execute`, split
+        over the mesh's batch axis for a stacked problem on a mesh that
+        has one."""
+        stacked = problem.kind == "stacked"
+        shards = self._batch_shard_size(mesh) if stacked else 1
         dtype = self._model.dtype
 
         def put(a):
@@ -486,17 +584,33 @@ class Estimator:
             mask = None if mask is None else mask.T
             if x_init is not None:
                 x_init = self._stacked_x_init(x_init, B)
-        return single, ts, y, mask, x_init, prior
+        args = (single, ts, y, mask, x_init, prior)
+        if shards == 1:
+            return functools.partial(self._execute, mesh=mesh), args
+        # the record dim of each argument (None: shared by every shard)
+        per_xi = x_init is not None and x_init.dim() == 3 and (
+            x_init.shape[1] == B)
+        per_prior = prior is not None and prior[0].dim() == 3
+        in_axes = (None, 1, 1, 1, 1 if per_xi else None,
+                   0 if per_prior else None)
+        return shard_over_batch(self._execute, mesh,
+                                self._batch_spmd_axis(mesh), in_axes), args
 
-    def _execute(self, single, ts, y, mask, x_init, prior) -> Solution:
-        """Run the method on prepared tensors; returns the surface
+    def _execute(self, single, ts, y, mask, x_init, prior, *,
+                 mesh) -> Solution:
+        """Run the method on prepared tensors (on their device) and, for
+        ``distributed``, on ``mesh``; returns the surface
         :class:`Solution`."""
         trace = steps = None
+        model = self._model_on(y.device)
+        solve_grid = self._grid_spec.solver
+        if self._distributed:
+            solve_grid = functools.partial(solve_grid, mesh=mesh)
         if isinstance(self.model, NonlinearSDE):
             o = self.options
             sol, trace, steps = iterated_solve(
-                self._model, ts, y,
-                lambda grid: self._grid_spec.solver(grid, o.inner),
+                model, ts, y,
+                lambda grid: solve_grid(grid, o.inner),
                 iterations=o.iterations,
                 divergence_correction=o.divergence_correction,
                 x_init=x_init, measurement_mask=mask, prior=prior,
@@ -504,9 +618,9 @@ class Estimator:
                 linearization=o.linearization)
             cost = None if trace is None else trace[-1]
         else:
-            grid = grid_lqt_from_linear(self._model, ts, y,
+            grid = grid_lqt_from_linear(model, ts, y,
                                         measurement_mask=mask, prior=prior)
-            sol = self._spec.solver(grid, self.options)
+            sol = solve_grid(grid, self.options)
             cost = om_cost_grid(grid, sol.x) if self.diagnostics else None
 
         def surface(a):
@@ -549,9 +663,8 @@ class Estimator:
     def _solve_ragged(self, problem: Problem) -> List[Solution]:
         """Pad-and-bucket: one stacked solve per bucket of records padded
         to one length, its batch rounded up to a power of two (with
-        ``pad_batch``) by recycling the bucket's first record.  (The
-        reference also rounds the batch up to a multiple of a device
-        mesh's batch axis; the port has no sharding yet.)"""
+        ``pad_batch``) and then to a multiple of the mesh's batch axis, by
+        recycling the bucket's first record."""
         lengths = problem.lengths
         buckets: Dict[int, List[int]] = {}
         for i, N_i in enumerate(lengths):
@@ -564,9 +677,12 @@ class Estimator:
 
         out: List[Optional[Solution]] = [None] * len(lengths)
         infos: List[BucketInfo] = []
+        axis = self._batch_shard_size(self._resolved_mesh())
         for n_pad, idxs in sorted(buckets.items()):
             B = len(idxs)
             B_pad = next_pow2(B) if problem.pad_batch else B
+            if axis > 1:
+                B_pad = -(-B_pad // axis) * axis
             rows = idxs + [idxs[0]] * (B_pad - B)           # recycle row 0
             padded = {i: pad_record(problem.ts[i], problem.y[i], n_pad)
                       for i in idxs}

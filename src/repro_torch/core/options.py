@@ -13,6 +13,9 @@ dataclass registered alongside the solver
 * :class:`KernelOptions` -- parallel options + the CUDA-kernel knobs of the
   ``parallel_kernel`` method (``block_size`` threads per CUDA block,
   ``precision`` compute dtype of the kernel scan);
+* :class:`DistributedOptions` -- parallel options + the mesh axes, shard
+  count, carry dtype and fallback of the time-sharded ``distributed``
+  method;
 * :class:`IteratedOptions` -- the iterated-linearisation (nonlinear) layer:
   ``iterations`` / ``divergence_correction`` / ``linearization`` plus the
   ``inner`` options of the linear method that solves each linearised
@@ -29,6 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 from repro_torch.linearize import get_linearization
 
@@ -133,6 +138,71 @@ class KernelOptions(ParallelOptions):
             raise ValueError(
                 f"precision must be one of {KERNEL_PRECISIONS}, "
                 f"got {self.precision!r}")
+
+
+CARRY_DTYPES = ("default", "float32", "float64")
+FALLBACKS = ("auto", "error")
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedOptions(ParallelOptions):
+    """Options of the time-axis-sharded parallel smoother (``distributed``).
+
+    ``time_axis`` names the mesh axis the block scans are sharded over;
+    ``batch_axes`` names the mesh axes the stacked/ragged record axis may
+    be sharded over (intersected with the mesh's axes at solve time, so
+    the same options serve a time-only and a 2-D mesh).
+    ``devices_per_time`` pins the time-shard count of a default mesh
+    (``None`` = every visible device of the estimator's type); an
+    explicit or ambient mesh with another ``time_axis`` extent is an
+    error, not a silent reshard.  ``carry_dtype`` is the dtype of the
+    O(P)-sequential scan over the gathered per-shard carries
+    (``"default"`` keeps the element dtype).  ``fallback="auto"`` runs the
+    single-device parallel scan when fewer than 2 time shards are
+    available; ``"error"`` raises instead.
+    """
+
+    time_axis: str = "time"
+    batch_axes: tuple = ("data",)
+    devices_per_time: Optional[int] = None
+    carry_dtype: str = "default"
+    fallback: str = "auto"
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if not isinstance(self.time_axis, str) or not self.time_axis:
+            raise ValueError(
+                f"time_axis must be a non-empty str, got {self.time_axis!r}")
+        if isinstance(self.batch_axes, list):
+            object.__setattr__(self, "batch_axes", tuple(self.batch_axes))
+        if not isinstance(self.batch_axes, tuple) or not all(
+                isinstance(a, str) and a for a in self.batch_axes):
+            raise ValueError(
+                f"batch_axes must be a tuple of non-empty axis names, "
+                f"got {self.batch_axes!r}")
+        if self.time_axis in self.batch_axes:
+            raise ValueError(
+                f"time_axis {self.time_axis!r} cannot also be a batch axis")
+        if self.devices_per_time is not None and (
+                not isinstance(self.devices_per_time, int)
+                or self.devices_per_time < 1):
+            raise ValueError(
+                f"devices_per_time must be None or a positive int, "
+                f"got {self.devices_per_time!r}")
+        if self.carry_dtype not in CARRY_DTYPES:
+            raise ValueError(
+                f"carry_dtype must be one of {CARRY_DTYPES}, "
+                f"got {self.carry_dtype!r}")
+        if self.fallback not in FALLBACKS:
+            raise ValueError(
+                f"fallback must be one of {FALLBACKS}, got {self.fallback!r}")
+
+    def resolve_carry_dtype(self) -> Optional[torch.dtype]:
+        """The dtype of the carry scan, or ``None`` to keep the element
+        dtype."""
+        if self.carry_dtype == "default":
+            return None
+        return getattr(torch, self.carry_dtype)
 
 
 @dataclasses.dataclass(frozen=True)

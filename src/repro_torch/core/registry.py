@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple, Tuple, Type
 
 from .options import (
+    DistributedOptions,
     IteratedOptions,
     KernelOptions,
     ParallelOptions,
@@ -107,11 +108,64 @@ def _parallel_kernel_solver(grid: GridLQT, o: KernelOptions) -> MAPSolution:
     return parallel_rts(grid, o.nsub, o.mode, suffix_scan_fn=suffix)
 
 
+def _distributed_solver(grid: GridLQT, o: DistributedOptions, *,
+                        mesh=None) -> MAPSolution:
+    """RTS smoother with both global scans (the eq.-(42) suffix scan and
+    the affine prefix scan) sharded over a named time axis
+    (:func:`repro_torch.core.pscan.sharded_scan`): a local scan per shard,
+    the P per-shard carries gathered, a sequential carry scan, a local
+    fix-up -- span O(log(T/P) + P).  The combines are the plain ones, as
+    in the reference: no kernel runs here.
+
+    ``mesh`` is the mesh the caller resolved (the Estimator passes the
+    one it resolved for the solve).  Without it the solver resolves one
+    as the reference does: an ambient ``MeshSpec.activate()`` mesh
+    carrying ``options.time_axis`` (see
+    :func:`repro_torch.distributed.resolve_time_mesh`), else a default
+    time-only mesh over ``devices_per_time`` (or all) distinct devices of
+    the grid's device type.  With fewer than 2 time shards the solver
+    runs the single-device parallel scan (``fallback="auto"``) or raises
+    (``fallback="error"``).
+    """
+    from repro_torch.distributed.sharding import resolve_time_mesh
+
+    from . import pscan
+    from .combine import affine_combine, lqt_combine
+
+    if mesh is None:
+        mesh = resolve_time_mesh(o.time_axis,
+                                 devices_per_time=o.devices_per_time,
+                                 device_type=grid.F.device.type)
+    if mesh is None:
+        if o.fallback == "error":
+            raise RuntimeError(
+                f"method='distributed' needs >= 2 devices on mesh axis "
+                f"{o.time_axis!r} (fallback='error'); pass "
+                f"fallback='auto' to degrade to the single-device scan")
+        return parallel_rts(grid, o.nsub, o.mode)
+
+    carry_dtype = o.resolve_carry_dtype()
+
+    def suffix(elems):
+        return pscan.sharded_scan(
+            lqt_combine, elems, mesh=mesh, axis_name=o.time_axis,
+            reverse=True, carry_dtype=carry_dtype)
+
+    def prefix(elems):
+        return pscan.sharded_scan(
+            affine_combine, elems, mesh=mesh, axis_name=o.time_axis,
+            carry_dtype=carry_dtype)
+
+    return parallel_rts(grid, o.nsub, o.mode,
+                        suffix_scan_fn=suffix, prefix_scan_fn=prefix)
+
+
 register_method(
     "parallel_rts",
     lambda grid, o: parallel_rts(grid, o.nsub, o.mode),
     ParallelOptions)
 register_method("parallel_kernel", _parallel_kernel_solver, KernelOptions)
+register_method("distributed", _distributed_solver, DistributedOptions)
 register_method(
     "parallel_two_filter",
     lambda grid, o: parallel_two_filter(

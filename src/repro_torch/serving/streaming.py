@@ -99,7 +99,7 @@ from repro_torch.core.padding import bucket_length
 from repro_torch.core.sde import LinearSDE, NonlinearSDE
 from repro_torch.core.types import Solution
 
-from .trajectory import check_mesh
+from .trajectory import check_wave_batch
 
 from .waves import (
     DUPLICATE_POLICIES,
@@ -249,7 +249,9 @@ class StreamingEngine:
         the robust ``discrete`` element mode, see
         :func:`repro_torch.serving.waves.robust_default_options`;
         ``device=None`` means ``"cuda"``, and raises without a card).
-      mesh: must be ``None`` (no sharding in the port).
+      mesh / batch_axis: forwarded to the Estimator (as
+        :class:`TrajectoryEngine`'s); ``batch`` must be a multiple of the
+        mesh's batch axis.
       diagnostics: forwarded to the Estimator; the streaming default is
         ``False`` (skip cost/step-norm traces -- latency path).
 
@@ -288,6 +290,7 @@ class StreamingEngine:
         bucket_sizes: Optional[Sequence[int]] = None,
         device=None,
         mesh=None,
+        batch_axis: str = "data",
         diagnostics: bool = False,
         duplicate_policy: str = "error",
         reorder_slack: int = 0,
@@ -335,9 +338,11 @@ class StreamingEngine:
                 raise ValueError(
                     f"lag_max ({lag_max}) must be >= lag_min ({lag_min})")
             lag = min(max(lag, lag_min), lag_max)
-        check_mesh(mesh)
         self.estimator = Estimator(model, method=method, options=options,
-                                   device=device, diagnostics=diagnostics)
+                                   device=device, mesh=mesh,
+                                   batch_axis=batch_axis,
+                                   diagnostics=diagnostics)
+        check_wave_batch(self.estimator, batch)
         self.model = model
         self._m0 = model.m0.detach().cpu().numpy()
         self.lag = lag

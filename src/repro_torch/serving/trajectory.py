@@ -28,9 +28,10 @@ The solver configuration is the Estimator's: ``method=`` plus the method's
 options dataclass.  The pre-redesign kwargs (``nsub``/``mode``/
 ``iterations``/``divergence_correction``) are still accepted with a
 ``DeprecationWarning``.  ``device`` defaults to ``"cuda"`` and raises
-without a card unless ``device="cpu"`` is passed.  The reference's
-``mesh``/``batch_axis`` batch sharding is not ported: ``mesh`` must be
-``None``.
+without a card unless ``device="cpu"`` is passed.  ``mesh``/``batch_axis``
+go to the Estimator: each wave's rows are split over the mesh's batch
+axis (and, with ``method="distributed"``, each row's time axis over its
+time axis).
 """
 from __future__ import annotations
 
@@ -56,12 +57,13 @@ from .waves import (
 )
 
 
-def check_mesh(mesh) -> None:
-    """The engines take ``mesh=None`` only: the port has no sharding."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the port has no batch or time-axis sharding yet; pass "
-            "mesh=None")
+def check_wave_batch(estimator: Estimator, batch: int) -> None:
+    """A wave of ``batch`` rows must split evenly over the mesh's batch
+    axis."""
+    shard = estimator._batch_shard_size(estimator._resolved_mesh())
+    if batch % shard:
+        raise ValueError(
+            f"batch {batch} not divisible by mesh batch axis size {shard}")
 
 
 class TrajectoryEngine:
@@ -77,8 +79,11 @@ class TrajectoryEngine:
         :func:`repro_torch.serving.waves.robust_default_options`).
       bucket_sizes: optional explicit padded-length buckets (multiples of
         the method's block size); default is power-of-two block counts.
-      device: where the waves are solved; ``None`` means ``"cuda"``.
-      mesh: must be ``None`` (no sharding in the port).
+      device: where the waves are solved; ``None`` means ``"cuda"`` (or
+        the mesh's first device).
+      mesh / batch_axis: forwarded to the :class:`Estimator` (a
+        :class:`~repro_torch.distributed.MeshSpec` or ``Mesh``); ``batch``
+        must be a multiple of the mesh's batch axis.
 
     ``submit``/``collect`` are thread-safe (one lock guards the queue and
     the finished map); ``step``/``run`` may be driven from a dedicated
@@ -95,6 +100,7 @@ class TrajectoryEngine:
         bucket_sizes: Optional[Sequence[int]] = None,
         device=None,
         mesh=None,
+        batch_axis: str = "data",
         **legacy,
     ):
         if legacy:
@@ -116,9 +122,10 @@ class TrajectoryEngine:
             options = robust_default_options(method)
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
-        check_mesh(mesh)
         self.estimator = Estimator(model, method=method, options=options,
-                                   device=device)
+                                   device=device, mesh=mesh,
+                                   batch_axis=batch_axis)
+        check_wave_batch(self.estimator, batch)
         self.model = model
         self.batch = batch
         self.bucket_sizes = bucket_sizes

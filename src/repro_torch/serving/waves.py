@@ -16,7 +16,8 @@ up by recycling a live row, padded rows masked exactly (see
   merge of a late/out-of-order measurement batch into an existing window
   series, and the matching warm-start-trajectory fix-up;
 * :func:`take_wave` -- FIFO wave selection: the oldest item fixes the
-  bucket, later same-bucket items top the wave up (continuous batching);
+  bucket (and whether rows carry warm starts and priors), later items of
+  that kind top the wave up (continuous batching);
 * :func:`pack_wave` -- pad + stack a wave into the tensors of one
   ``Problem.stacked`` solve;
 * :func:`record_wave_metrics` -- the per-wave obs readout under a metric
@@ -216,16 +217,24 @@ def validate_record(ts, y) -> Tuple[np.ndarray, np.ndarray]:
     return ts, y
 
 
+def _wave_key(item: WaveItem) -> Tuple[int, bool, bool]:
+    """What a wave's items must share: the bucket, and whether they carry
+    a warm start and a boundary prior (:func:`pack_wave` stacks either
+    for every row or for none)."""
+    return item.n_pad, item.x_init is None, item.prior is None
+
+
 def take_wave(queue: Deque[WaveItem], batch: int) -> List[WaveItem]:
-    """FIFO wave: the oldest item fixes the bucket; later same-bucket
-    items top the wave up to ``batch`` (others keep their place).
-    Scanning stops as soon as the wave is full.  Mutates ``queue``."""
-    n_pad = queue[0].n_pad
+    """FIFO wave: the oldest item fixes the bucket (and whether the rows
+    carry warm starts and priors); later items of the same kind top the
+    wave up to ``batch`` (others keep their place).  Scanning stops as
+    soon as the wave is full.  Mutates ``queue``."""
+    key = _wave_key(queue[0])
     wave: List[WaveItem] = []
     keep: Deque[WaveItem] = collections.deque()
     while queue and len(wave) < batch:
         item = queue.popleft()
-        if item.n_pad == n_pad:
+        if _wave_key(item) == key:
             wave.append(item)
         else:
             keep.append(item)

@@ -256,13 +256,14 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert 'repro_torch.distributed.sharding' in sys.modules\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(src)))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 59
+    assert int(out.stdout.strip()) >= 61
 
 
 @pytest.fixture(scope="module", autouse=True)

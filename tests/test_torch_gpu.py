@@ -1,8 +1,8 @@
 """Tests of the port that need a CUDA card: the LM kernels on the card,
 the whole-scan ``lqt_scan`` kernel against its plain scan, and the
 nonlinear estimation paths (the iterated Taylor and sigma-point
-smoothers) and the estimation serving engines (``TrajectoryEngine``,
-``StreamingEngine``) through it.
+smoothers), the estimation serving engines (``TrajectoryEngine``,
+``StreamingEngine``) and the record-axis split over a mesh through it.
 
 They skip without a card.  This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -377,3 +377,41 @@ def test_streaming_engine_kernel_on_card_matches_cpu(card):
             assert bool(torch.isfinite(k.x).all())
             scale = float(c.x.abs().max())
             assert float((k.x - c.x).abs().max()) < 1e-9 * scale
+
+
+@pytest.mark.gpu
+def test_batch_sharded_kernel_launches_once_per_shard_on_card(card):
+    """Stacked records split over a batch axis of 4 (a mesh that repeats
+    card 0): one ``lqt_scan`` launch per shard, the unsplit solve's result
+    at 1e-9 x scale; and ``distributed`` on a 4 x 2 mesh of the card
+    against ``parallel_rts`` at 1e-9."""
+    from repro_torch.core import DistributedOptions, Problem
+    from repro_torch.distributed import MeshSpec
+
+    model, recs = _wiener_records([400] * 8, torch.Generator().manual_seed(3))
+    ts = recs[0][0]
+    ys = np.stack([y for _, y in recs])
+    problem = Problem.stacked(model, ts, ys)
+    opts = KernelOptions(nsub=10, mode="discrete")
+
+    def mesh(time, batch):
+        return MeshSpec(time=time, batch=batch).build(
+            ["cuda:0"] * (time * batch))
+
+    sharded = Estimator(model, method="parallel_kernel", options=opts,
+                        mesh=mesh(1, 4))
+    before = lqt_scan.launch_count(), lqt_kernel.launch_count()
+    got = sharded.solve(problem)
+    torch.cuda.synchronize()
+    assert lqt_scan.launch_count() - before[0] == 4
+    assert lqt_kernel.launch_count() == before[1]
+    want = Estimator(model, method="parallel_kernel", options=opts).solve(
+        problem)
+    scale = float(want.x.abs().max())
+    assert got.x.device.type == "cuda"
+    assert float((got.x - want.x).abs().max()) < 1e-9 * scale
+    dist = Estimator(model, method="distributed", mesh=mesh(4, 2),
+                     options=DistributedOptions(nsub=10, mode="discrete"))
+    ref = Estimator(model, options=ParallelOptions(nsub=10, mode="discrete"))
+    assert torch.allclose(dist.solve(problem).x, ref.solve(problem).x,
+                          rtol=1e-9, atol=1e-9)

@@ -35,6 +35,7 @@ from repro.core import time_grid
 from repro_torch import core
 from repro_torch.configs.coordinated_turn import CoordinatedTurnConfig
 from repro_torch.convert import linear_sde_from_numpy, nonlinear_sde_from_numpy
+from repro_torch.distributed import MeshSpec
 from repro_torch.core import (
     Estimator,
     IteratedOptions,
@@ -381,15 +382,39 @@ def test_map_estimate_ragged_shim(lin):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(batch_axis="data")])
 def test_batched_shims_take_no_mesh(lin, kw):
-    """Sharding is not ported: ``mesh``/``batch_axis`` accept ``None``."""
+    """The shims hand ``mesh``/``batch_axis`` to the Estimator: a mesh that
+    is not ``None``, a ``Mesh`` or a ``MeshSpec`` raises ``as_mesh``'s
+    ``TypeError``; ``batch_axis`` names the axis of a mesh of two CPU
+    devices that splits the records, with the unsplit solve's result."""
     tm = lin["tmodel"]
     ts, y = lin["records"][1]
-    with pytest.warns(DeprecationWarning):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            map_estimate_batched(tm, ts, y[None], device="cpu", **kw)
-    with pytest.warns(DeprecationWarning):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            map_estimate_ragged(tm, lin["records"], device="cpu", **kw)
+    ys = np.stack([y, 0.5 * y])
+    if "mesh" in kw:
+        for call in (lambda: map_estimate_batched(tm, ts, ys, device="cpu",
+                                                  **kw),
+                     lambda: map_estimate_ragged(tm, lin["records"],
+                                                 device="cpu", **kw)):
+            with pytest.warns(DeprecationWarning):
+                with pytest.raises(TypeError, match="MeshSpec"):
+                    call()
+        return
+    mesh = MeshSpec(batch=2).build(["cpu"] * 2)
+    est = Estimator(tm, device="cpu", options=METHODS["parallel_rts"])
+    with pytest.warns(DeprecationWarning, match="map_estimate_batched"):
+        old = map_estimate_batched(tm, ts, ys, nsub=NSUB, mode="discrete",
+                                   mesh=mesh, **kw)
+    new = est.solve(Problem.stacked(tm, ts, ys))
+    for f in ("x", "S", "v"):
+        torch.testing.assert_close(getattr(old, f), getattr(new, f),
+                                   rtol=1e-12, atol=1e-12)
+    with pytest.warns(DeprecationWarning, match="map_estimate_ragged"):
+        old = map_estimate_ragged(tm, lin["records"], nsub=NSUB,
+                                  mode="discrete", mesh=mesh, **kw)
+    new = est.solve(Problem.ragged(tm, lin["records"]))
+    for o, n in zip(old, new):
+        torch.testing.assert_close(o.x, n.x, rtol=1e-12, atol=1e-12)
+    # buckets of one record solve two rows: the batch rounds up to the axis
+    assert [b.batch for b in old[0].padding.buckets] == [2, 2]
 
 
 def test_methods_is_a_live_view(monkeypatch):
@@ -450,12 +475,11 @@ def test_slice_solution_matches_reference():
 
 def test_core_surface_matches_reference():
     """The port's ``repro_torch.core`` exports the reference's
-    ``repro.core`` surface but for time-axis sharding and the executable
-    cache, which are not ported yet."""
+    ``repro.core`` surface but for the executable cache, which is not
+    ported yet."""
     import repro.core as jcore
 
-    not_yet = {"DistributedOptions", "distributed_scan", "sharded_scan",
-               "ExecutableCache", "cache_stats", "clear_cache"}
+    not_yet = {"ExecutableCache", "cache_stats", "clear_cache"}
     missing = set(jcore.__all__) - not_yet - set(core.__all__)
     assert not missing, sorted(missing)
     assert not not_yet & set(core.__all__)

@@ -39,6 +39,7 @@ from repro_torch.core import (
     Problem,
     SigmaPointOptions,
 )
+from repro_torch.distributed import MeshSpec
 from repro_torch.serving import StreamingEngine
 from repro_torch.serving.waves import robust_default_options
 
@@ -382,6 +383,34 @@ def test_multi_track_waves_batch_together():
                                    atol=1e-10)
 
 
+def test_wave_never_mixes_windows_with_and_without_a_prior():
+    """A track past its first eviction (boundary prior) and a fresh track
+    with a window of the same bucket are due together: they go in two
+    waves, each row solved as a single-track engine solves it (threaded
+    clients reach this state by timing)."""
+    model, ts, y = _linear_data(12)
+    yb = _linear_data(12, seed=7)[2]
+    eng = _engine(model, lag=4, batch=2, options=OPTIONS)
+    a, b = eng.open_track(ts[0]), eng.open_track(ts[0])
+    eng.push(a, ts[1:7], y[:6])
+    eng.run()
+    eng.push(a, ts[7:8], y[6:7])                 # window 5, with a prior
+    eng.push(b, ts[1:6], yb[:5])                 # window 5, no prior
+    waves = eng.waves
+    assert eng.run() == 2
+    assert eng.waves == waves + 2
+    for tid, steps in ((a, [(1, 7, y[:6]), (7, 8, y[6:7])]),
+                       (b, [(1, 6, yb[:5])])):
+        solo = _engine(model, lag=4, batch=2, options=OPTIONS)
+        stid = solo.open_track(ts[0])
+        for lo, hi, yi in steps:
+            solo.push(stid, ts[lo:hi], yi)
+            solo.run()
+        np.testing.assert_allclose(eng.estimate(tid).x.numpy(),
+                                   solo.estimate(stid).x.numpy(), rtol=0,
+                                   atol=1e-10)
+
+
 def test_threaded_push_and_solve():
     model, ts, y = _linear_data(30)
     lag = 30
@@ -578,8 +607,13 @@ def test_device_and_mesh_rules():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             StreamingEngine(_WIENER)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="MeshSpec"):
         _engine(_WIENER, mesh=object())
+    mesh = MeshSpec(batch=2).build(["cpu"] * 2)
+    with pytest.raises(ValueError, match="batch 3 not divisible by mesh "
+                                         "batch axis size 2"):
+        _engine(_WIENER, batch=3, mesh=mesh)
+    assert _engine(_WIENER, batch=4, mesh=mesh).estimator.mesh is mesh
 
 
 # -- satellite regressions -------------------------------------------------

@@ -1,6 +1,6 @@
 """The PyTorch port's ``TrajectoryEngine``, held against the JAX
 reference's, and the reference's ``tests/test_trajectory_engine.py`` cases
-on the port (all but the sharded batch path: the port has no sharding).
+on the port (the sharded batch path is in ``test_torch_distributed.py``).
 
 Both engines get the same numpy records, simulated by the reference.  The
 port's ``parallel_kernel`` runs on the CPU through its kernel's plain
@@ -33,6 +33,7 @@ from repro_torch.core import (
     Problem,
     SequentialOptions,
 )
+from repro_torch.distributed import MeshSpec
 from repro_torch.serving import TrajectoryEngine
 from repro_torch.serving.waves import robust_default_options
 
@@ -244,15 +245,23 @@ def test_legacy_kwargs_warn_and_map_to_options(model):
 
 
 def test_device_and_mesh_rules(model):
-    """``device=None`` means the card and raises without one; a mesh is
-    refused (the port has no sharding)."""
+    """``device=None`` means the card and raises without one; ``mesh`` is
+    the Estimator's (``as_mesh`` rejects other types), and the wave batch
+    must divide over the mesh's batch axis."""
     if torch.cuda.is_available():
         assert TrajectoryEngine(model).estimator.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrajectoryEngine(model)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="MeshSpec"):
         TrajectoryEngine(model, device="cpu", mesh=object())
+    mesh = MeshSpec(batch=4).build(["cpu"] * 4)
+    with pytest.raises(ValueError, match="batch 6 not divisible by mesh "
+                                         "batch axis size 4"):
+        TrajectoryEngine(model, batch=6, mesh=mesh)
+    eng = TrajectoryEngine(model, batch=8, mesh=mesh, batch_axis="data")
+    assert eng.estimator.mesh is mesh
+    assert eng.estimator.device == torch.device("cpu")
 
 
 def test_sequential_engine_uses_unit_buckets(model):
