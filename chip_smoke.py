@@ -25,7 +25,9 @@ Phases, each of which fails the run on any miss:
                  ``kernel_suffix_scan`` against the core suffix scan;
                  ``flash_attention`` and
                  ``ssd_chunked`` in float32 and bfloat16 on the reference's
-                 small test cases and at hymba-1.5b's prefill shapes, plus
+                 small test cases and at hymba-1.5b's prefill and
+                 training-microbatch shapes (the errors the report gives
+                 each path), plus
                  bfloat16 cases for the tensor-core tiling, each case
                  naming the variant it ran; the SSD ``mma`` kernel's
                  stage-2 chunk states against the staged plain version;
@@ -136,10 +138,24 @@ Phases, each of which fails the run on any miss:
 5. cross-path -- the same weights in float32, one wave of 8 x 2048
                  tokens: prefill logits of the kernel path against the
                  plain path, and their first generated tokens;
-6. LM kernels -- each LM kernel's time at the serving path's shapes,
-                 beside the simt design at the same shape (timed in turns),
-                 its plain version, the PyTorch library call where there
-                 is one, its bound, and each SSD stage's time;
+5b. training   -- ``Trainer.run`` on hymba-1.5b at full width and depth
+                 in bfloat16 (random weights from a seeded generator): 8 x
+                 2048 tokens a step in two microbatches for 6 steps, with
+                 each step's ms (CUDA events), tokens/s, loss, grad_norm and
+                 lr, the peak memory, the launch counts of both LM kernels
+                 (``remat_forwards`` x microbatches per step, all ``mma``),
+                 the step-6 checkpoint's size, save and restore seconds and
+                 a bit-exact restore, the AdamW update's own time and one
+                 profiled step; then a new trainer resumes from the
+                 checkpoint and runs to step 8;
+5c. training cross-path -- hymba-1.5b's widths at 2 layers in float32, 2 x
+                 2048 tokens: ``train_loss`` and every gradient leaf through
+                 the kernels (``simt``, under the autograd Functions)
+                 against the plain path, normwise within 1e-3;
+6. LM kernels -- each LM kernel's time at the serving and training paths'
+                 shapes, beside the simt design at the same shape (timed in
+                 turns), its plain version, the PyTorch library call where
+                 there is one, its bound, and each SSD stage's time;
 7. report     -- one JSON line of per-kernel numbers, the card's name and
                  power limit, and the final status line.
 
@@ -152,6 +168,7 @@ import collections
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -237,6 +254,15 @@ SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.04}
 # kernel path vs plain path on the whole model, float32: the two differ
 # by float32 sums in another order through 32 layers.
 CROSS_RTOL = 1e-3
+# hymba-1.5b training cell: 8 sequences of 2048 tokens a step in two
+# microbatches from seeded random weights, 6 steps with a checkpoint at
+# step 6, then a new trainer resumes from it and runs to step 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_TOTAL = (
+    8, 2048, 2, 6, 8)
+# training, kernel path vs plain path in float32: hymba-1.5b's widths at 2
+# layers, 2 sequences of 2048 tokens; the loss and each gradient leaf
+# (normwise) within the float32 forward check's bound (CROSS_RTOL)
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH = 2, 2
 # name fragments of the port's kernels in a profiler trace
 PORT_KERNELS = ("flash_attn", "ssd_", "lqt_combine", "lqt_scan")
 
@@ -410,9 +436,10 @@ def kernel_name(key: str) -> str:
     return m.group(0) if m else key[:60]
 
 
-def profile_summary(label: str, fn, wall_ms: float) -> None:
+def profile_summary(label: str, fn, wall_ms: float) -> float:
     """One profiled call: device kernels, busy time against ``wall_ms``
-    (the call's CUDA-event time without the profiler), top kernels."""
+    (the call's CUDA-event time without the profiler), top kernels.
+    Returns the busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -436,6 +463,7 @@ def profile_summary(label: str, fn, wall_ms: float) -> None:
             + ", ".join(f"{kernel_name(e.key)} x{e.count} "
                         f"{e.self_device_time_total / 1e3:.3f} ms"
                         for e in ours))
+    return busy
 
 
 def scan_lane_counts(n: int, records: int) -> list:
@@ -600,7 +628,8 @@ def check_scan(g, lqt_scan, lqt_ref) -> None:
 
 
 # (B, Hq, Hkv, Lq, Lk, D, causal, window): the reference's five test cases,
-# two ragged-edge cases, and hymba-1.5b's prefill, in both dtypes; then
+# two ragged-edge cases, and hymba-1.5b's prefill (batch 8) and training
+# microbatch (batch 4), in both dtypes; then
 # bfloat16 cases for the tensor-core kernel's tiling: D in {16, 32, 128},
 # Lq < Lk (decode alignment), Lq and Lk off the 64-row tiles, windows off
 # the tiles, and no causal mask.
@@ -613,6 +642,7 @@ FA_CASES = [
     (1, 4, 2, 100, 300, 128, True, None),
     (1, 4, 2, 200, 200, 64, True, 70),
     (8, 25, 5, 2048, 2048, 64, True, 1024),
+    (4, 25, 5, 2048, 2048, 64, True, 1024),
 ]
 FA_MMA_CASES = [
     (2, 4, 2, 128, 128, 16, True, None),
@@ -625,7 +655,8 @@ FA_MMA_CASES = [
     (1, 4, 2, 64, 200, 128, False, 50),
 ]
 # (BH, L, P, S, chunk): the reference's four test shapes (heads folded in),
-# two more, and hymba-1.5b's prefill (8 x 50 heads), in both dtypes; then
+# two more, and hymba-1.5b's prefill (8 x 50 heads) and training microbatch
+# (4 x 50 heads), in both dtypes; then
 # bfloat16 cases for the chunk-parallel kernel's tiling: S in {8, 64, 128},
 # P in {16, 128}, chunks of 64, 100 and 256.
 SSD_CASES = [
@@ -636,6 +667,7 @@ SSD_CASES = [
     (4, 512, 128, 128, 256),
     (3, 300, 64, 16, 100),
     (400, 2048, 64, 16, 256),
+    (200, 2048, 64, 16, 256),
 ]
 SSD_MMA_CASES = [
     (4, 512, 16, 8, 256),
@@ -680,9 +712,9 @@ def launched(kernel, call) -> tuple:
     return out, moved[0]
 
 
-def check_fa(g, fa_kernel, fa_ref) -> float:
-    """Returns the max abs error at hymba's prefill shape in bfloat16."""
-    err_main = None
+def check_fa(g, fa_kernel, fa_ref) -> dict:
+    """Returns ``{case: max abs error}`` of the bfloat16 cases."""
+    errs_bf16 = {}
     cases = ([(dtype, c) for dtype in (torch.float32, torch.bfloat16)
               for c in FA_CASES]
              + [(torch.bfloat16, c) for c in FA_MMA_CASES])
@@ -708,16 +740,16 @@ def check_fa(g, fa_kernel, fa_ref) -> float:
         if not ok:
             raise AssertionError(f"flash_attention kernel disagrees with "
                                  f"its plain version: {dtype} {case}")
-        if case == FA_CASES[-1] and dtype == torch.bfloat16:
-            err_main = err
+        if dtype == torch.bfloat16:
+            errs_bf16[case] = err
         del q, k, v, got, want
     torch.cuda.empty_cache()
-    return err_main
+    return errs_bf16
 
 
-def check_ssd(g, ssd_kernel, ssd_ref) -> float:
-    """Returns the max abs error at hymba's prefill shape in bfloat16."""
-    err_main = None
+def check_ssd(g, ssd_kernel, ssd_ref) -> dict:
+    """Returns ``{case: max abs error}`` of the bfloat16 cases."""
+    errs_bf16 = {}
     cases = ([(dtype, c) for dtype in (torch.float32, torch.bfloat16)
               for c in SSD_CASES]
              + [(torch.bfloat16, c) for c in SSD_MMA_CASES])
@@ -754,20 +786,23 @@ def check_ssd(g, ssd_kernel, ssd_ref) -> float:
         if not ok:
             raise AssertionError(f"ssd kernel disagrees with its plain "
                                  f"version: {dtype} {case}")
-        if case == SSD_CASES[-1] and dtype == torch.bfloat16:
-            err_main = err
+        if dtype == torch.bfloat16:
+            errs_bf16[case] = err
         del ins, got, want
         torch.cuda.empty_cache()
-    return err_main
+    return errs_bf16
 
 
 # ---------------------------------------------------------------------------
 # 3. estimation path
 # ---------------------------------------------------------------------------
 
-def median_solve_ms(est, problem, runs: int = 5) -> float:
-    """Median of ``runs`` solves by CUDA events, after one warm-up."""
-    est.solve(problem)
+def median_solve_ms(est, problem, runs: int = 5,
+                    warm_up: bool = True) -> float:
+    """Median of ``runs`` solves by CUDA events, after one warm-up (the
+    caller may have made it already)."""
+    if warm_up:
+        est.solve(problem)
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
@@ -981,13 +1016,16 @@ def nonlinear_path(lqt_kernel, lqt_scan) -> tuple:
                 raise AssertionError(f"{name}: {label} max|dx| {dx:.3e} >= "
                                      f"{tol:.0e}")
 
+    # sequential_rts takes 12-15 s a solve (~5120 eager steps a pass): its
+    # gate above was its warm-up on each problem
     solve_ms = {}
     for name, p in problems.items():
         for label, e in ests.items():
-            solve_ms[(name, label)] = median_solve_ms(e, p)
+            seq = label == "sequential_rts"
+            solve_ms[(name, label)] = median_solve_ms(e, p, warm_up=not seq)
             log(f"  solve {name} {label}: median "
                 f"{solve_ms[(name, label)]:.3f} ms over 5 runs (CUDA events, "
-                f"after one warm-up)")
+                f"after {'its gate solve' if seq else 'one warm-up'})")
         log(f"  {name}: sequential_rts / parallel_kernel = "
             f"{solve_ms[(name, 'sequential_rts')] / solve_ms[(name, 'parallel_kernel')]:.2f}")
 
@@ -2330,6 +2368,298 @@ def cross_path(cfg, params) -> None:
         raise AssertionError("kernel path disagrees with the plain path")
 
 
+# ---------------------------------------------------------------------------
+# 5b-5c. language-model training path
+# ---------------------------------------------------------------------------
+
+def remat_forwards(cfg) -> int:
+    """How many times each layer's forward runs in one ``train_loss`` and
+    its backward pass: L layers once, again for ``remat`` or the group
+    checkpoint (its recompute), and L - L / g more for both together (a
+    group's recompute stops at its last layer's input, then each layer's
+    own checkpoint recomputes it).  The group checkpoint is taken when
+    ``remat_group`` divides and is below the depth and the layers are not
+    unrolled."""
+    n, g = cfg.num_layers, cfg.remat_group
+    grouped = bool(g) and n % g == 0 and n > g and not cfg.unroll_layers
+    runs = n * (2 if cfg.remat or grouped else 1)
+    if cfg.remat and grouped:
+        runs += n - n // g
+    return runs
+
+
+class _TimedPipeline:
+    """The LM pipeline with a CUDA event recorded as each step asks for
+    its batch (the step's start on the card's stream)."""
+
+    def __init__(self, pipe, starts):
+        self.pipe, self.starts = pipe, starts
+
+    def batch_at(self, step):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.starts[step + 1] = ev
+        return self.pipe.batch_at(step)
+
+
+def _step_recorder(ends, metrics):
+    """A ``Trainer.on_step`` that keeps each step's metrics and records a
+    CUDA event after its update (before any checkpoint)."""
+    def on_step(step, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends[step], metrics[step] = ev, m
+    return on_step
+
+
+def _trainer_log(lines):
+    def log_fn(msg):
+        lines.append(msg)
+        log(f"    {msg}")
+    return log_fn
+
+
+def training_path(cfg, fa_kernel, ssd_kernel, workdir: Path) -> dict:
+    """``Trainer.run`` on hymba-1.5b at full width and depth in bf16, then
+    a resume; returns the two LM kernels' launches on the path."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import transformer
+    from repro_torch.train import (Trainer, adamw_update, cosine_schedule,
+                                   make_train_step)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import LMDataPipeline
+
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       microbatches=TRAIN_MICRO, learning_rate=3e-4,
+                       warmup_steps=1, total_steps=TRAIN_TOTAL, log_every=1,
+                       checkpoint_every=TRAIN_STEPS, keep_checkpoints=1,
+                       seed=SEED)
+    pipe = LMDataPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=SEED)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    per_step = TRAIN_MICRO * remat_forwards(cfg)
+    log(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} tokens a step in "
+        f"{TRAIN_MICRO} microbatches; remat per layer and in groups of "
+        f"{cfg.remat_group}: each layer's forward runs "
+        f"{remat_forwards(cfg) / cfg.num_layers:.3f} times per "
+        f"microbatch, so each LM kernel launches {per_step} times a step")
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=workdir))
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    try:
+        starts, ends, step_metrics = {}, {}, {}
+        fa_kernel.reset_launch_count()
+        ssd_kernel.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg=cfg, tcfg=tcfg,
+                          pipeline=_TimedPipeline(pipe, starts),
+                          ckpt_dir=str(ckpt_dir), log_fn=_trainer_log([]),
+                          device="cuda",
+                          on_step=_step_recorder(ends, step_metrics))
+        params, opt, metrics = trainer.run(steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"flash_attention": fa_kernel.launch_count(),
+                    "ssd_chunked": ssd_kernel.launch_count()}
+        mma = {name: k.launch_count("mma") for name, k in
+               (("flash_attention", fa_kernel), ("ssd_chunked", ssd_kernel))}
+        log(f"main path launches ({TRAIN_STEPS} steps): {launches}, of the "
+            f"mma variant {mma}; Trainer.run {run_s:.1f} s (init and the "
+            f"checkpoint included)")
+        for name, n in launches.items():
+            if n != per_step * TRAIN_STEPS or mma[name] != n:
+                raise AssertionError(
+                    f"{name}: {n} launches ({mma[name]} mma), expected "
+                    f"{per_step} per step x {TRAIN_STEPS}, all mma")
+        if sorted(step_metrics) != list(range(1, TRAIN_STEPS + 1)):
+            raise AssertionError(f"steps run: {sorted(step_metrics)}")
+        ms = {}
+        for n, m in sorted(step_metrics.items()):
+            loss, gnorm, lr = (float(m[k]) for k in ("loss", "grad_norm",
+                                                     "lr"))
+            ms[n] = starts[n].elapsed_time(ends[n])
+            log(f"  step {n}: {ms[n]:.1f} ms (CUDA events), "
+                f"{tokens / ms[n] * 1e3:.0f} tokens/s, loss {loss:.4f}, "
+                f"grad_norm {gnorm:.4f}, lr {lr:.2e}")
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"step {n}: loss {loss}, grad_norm "
+                                     f"{gnorm}")
+        later = [ms[n] for n in range(2, TRAIN_STEPS + 1)]
+        step_ms = statistics.median(later)
+        log(f"  steps 2..{TRAIN_STEPS}: median {step_ms:.1f} ms (min "
+            f"{min(later):.1f}, max {max(later):.1f}), "
+            f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
+            f"{peak / 1e9:.2f} GB of {total_mem / 1e9:.2f} GB")
+        if peak >= total_mem:
+            raise AssertionError("peak memory exceeds the card")
+
+        path = ckpt.latest_checkpoint(str(ckpt_dir))
+        save_s = [round(sec, 2) for _, _, sec in trainer.saves]
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        step, (p2, o2) = ckpt.restore_checkpoint(path, (params, opt))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = step == TRAIN_STEPS and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in
+            zip(tree.leaves((params, opt)), tree.leaves((p2, o2))))
+        log(f"  checkpoint {Path(path).name}: {nbytes / 1e9:.3f} GB, saved "
+            f"in {save_s} s, restored in {restore_s:.2f} s; step "
+            f"{step}, params and optimizer state equal bit for bit: {same}")
+        if not same:
+            raise AssertionError("restored checkpoint differs from the "
+                                 "trained state")
+        del p2, o2
+        torch.cuda.empty_cache()
+
+        # the AdamW update alone, on float32 gradients of the params' shape
+        grads = tree.tree_map(
+            lambda p: torch.full(p.shape, 1e-3, dtype=torch.float32,
+                                 device=p.device), params)
+        sched = cosine_schedule(tcfg)
+        adamw_ms = cuda_time_ms(lambda: adamw_update(grads, opt, tcfg, sched),
+                                3)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree.leaves((params, opt, grads)))
+        log(f"  AdamW update: {adamw_ms:.2f} ms (CUDA events, mean of 3) over "
+            f"{state_bytes / 1e9:.2f} GB of params, state and gradients "
+            f"(one read of each: {state_bytes / HBM_BYTES_PER_S * 1e3:.2f} "
+            f"ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        del grads
+
+        phase("training profile")
+        step_fn = make_train_step(cfg, tcfg, lambda p, b: transformer.
+                                  train_loss(p, b, cfg, use_kernel=True))
+        batch = tree.tree_map(lambda t: t.cuda(), pipe.batch_at(TRAIN_STEPS))
+        busy = profile_summary("train step",
+                               lambda: step_fn(params, opt, batch), step_ms)
+        del params, opt, metrics, step_fn, batch
+        torch.cuda.empty_cache()
+        calls = cfg.num_layers * TRAIN_MICRO
+        for name, ms_ in plain_backward_ms(
+                cfg, TRAIN_BATCH // TRAIN_MICRO).items():
+            log(f"  {name}: {ms_:.2f} ms a call (CUDA events), x{calls} a "
+                f"step = {ms_ * calls:.1f} ms, {ms_ * calls / busy:.3f} of "
+                f"the profiled step's busy time")
+        torch.cuda.empty_cache()
+
+        phase("training path: resume from the step-6 checkpoint")
+        lines2, later = [], {}
+        resumer = Trainer(cfg=cfg, tcfg=tcfg, pipeline=pipe,
+                          ckpt_dir=str(ckpt_dir), log_fn=_trainer_log(lines2),
+                          device="cuda", on_step=_step_recorder({}, later))
+        _, opt, metrics = resumer.run()
+        resumed = (resumer.start_step == TRAIN_STEPS
+                   and any("resumed" in x for x in lines2))
+        log(f"  resumed: {resumed}; steps {sorted(later)}; "
+            f"opt.step {int(opt.step)}; checkpoints left "
+            f"{sorted(os.listdir(ckpt_dir))}")
+        if not (resumed and int(opt.step) == TRAIN_TOTAL
+                and sorted(later) == list(
+                    range(TRAIN_STEPS + 1, TRAIN_TOTAL + 1))
+                and all(bool(torch.isfinite(m["loss"]))
+                        and bool(torch.isfinite(m["grad_norm"]))
+                        for m in later.values())):
+            raise AssertionError("the resumed run did not continue to "
+                                 f"step {TRAIN_TOTAL}")
+        del opt, metrics
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def plain_backward_ms(cfg, B: int) -> dict:
+    """Per call, at batch ``B`` of the training shape: the backward passes
+    of ``attention_trainable`` and ``ssd_trainable`` (autograd through
+    ``mha_ref`` and ``ssd_scan_chunked``, their forward recomputed) alone,
+    by CUDA events."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import mha_ref
+    from repro_torch.kernels.ssd import ssd_scan_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def r(*shape, dtype=torch.bfloat16, fn=lambda t: t):
+        return fn(torch.randn(shape, generator=gen, device="cuda")).to(
+            dtype).requires_grad_()
+
+    L = TRAIN_SEQ
+    q = r(B, cfg.num_heads, L, cfg.hd)
+    k, v = (r(B, cfg.num_kv_heads, L, cfg.hd) for _ in range(2))
+    go = r(B, cfg.num_heads, L, cfg.hd).detach()
+    H, P, G, S = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                  cfg.ssm_state)
+    ins = (r(B, L, H, P), r(B, L, H, fn=F.softplus),
+           r(H, dtype=torch.float32, fn=lambda t: -torch.exp(0.5 * t)),
+           r(B, L, G, S), r(B, L, G, S), r(H))
+    gy = r(B, L, H, P).detach()
+    return {
+        "attention backward (mha_ref)": cuda_time_ms(
+            lambda: torch.autograd.grad(mha_ref(
+                q, k, v, causal=True, window=cfg.window), (q, k, v), go), 3),
+        "SSD backward (ssd_scan_chunked)": cuda_time_ms(
+            lambda: torch.autograd.grad(ssd_scan_chunked(
+                *ins, cfg.ssm_chunk), ins, gy), 3)}
+
+
+def training_cross_path(cfg, fa_kernel, ssd_kernel) -> None:
+    """``train_loss`` and its gradients in float32 through the kernels
+    (the simt variants under the autograd Functions) and through the plain
+    path (``chunked_mha``, ``ssd_scan_chunked``), at hymba-1.5b's widths
+    over TRAIN_CHECK_LAYERS layers."""
+    from repro_torch import tree
+    from repro_torch.models import transformer
+    from repro_torch.train.data import LMDataPipeline
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=TRAIN_CHECK_LAYERS)
+    params = transformer.init(
+        cfg32, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = tree.tree_map(lambda t: t.cuda(), LMDataPipeline(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_CHECK_BATCH, seed=SEED).batch_at(0))
+    out = {}
+    for use_kernel in (True, False):
+        fa_kernel.reset_launch_count()
+        ssd_kernel.reset_launch_count()
+        leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+        loss = transformer.train_loss(tree.unflatten(params, leaves), batch,
+                                      cfg32, use_kernel=use_kernel)
+        out[use_kernel] = (loss.detach(),
+                           torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        n = {k.__name__.split(".")[-2]: (k.launch_count("simt"),
+                                        k.launch_count())
+             for k in (fa_kernel, ssd_kernel)}
+        want = remat_forwards(cfg32) if use_kernel else 0
+        if any(v != (want, want) for v in n.values()):
+            raise AssertionError(f"use_kernel={use_kernel}: launches "
+                                 f"(simt, all) {n}, expected {want}")
+    (lk, gk), (lp, gp) = out[True], out[False]
+    loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    errs = {"/".join(map(str, path)): float(
+        (a - b).norm() / b.norm().clamp_min(1e-30))
+        for (path, _), a, b in zip(tree.flatten(params), gk, gp)}
+    worst = max(errs, key=errs.get)
+    log(f"  float32, {TRAIN_CHECK_LAYERS} layers, {TRAIN_CHECK_BATCH} x "
+        f"{TRAIN_SEQ} tokens: loss {float(lk):.6f} (kernel path) vs "
+        f"{float(lp):.6f} (plain), relative {loss_err:.3e}; gradients of "
+        f"{len(errs)} leaves, normwise relative error max {errs[worst]:.3e} "
+        f"({worst}), median {statistics.median(errs.values()):.3e} "
+        f"(tol {CROSS_RTOL:.0e})")
+    if not (loss_err <= CROSS_RTOL and errs[worst] <= CROSS_RTOL):
+        raise AssertionError("training: kernel path disagrees with the "
+                             "plain path")
+
+
 def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
     """``{name: (ms, profiler ms)}`` per call of each function, timed in
     turns (a, b, ..., then again) so that the card's state is shared: CUDA
@@ -2344,21 +2674,16 @@ def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
             for name, t in times.items()}
 
 
-def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
-                     g, errs) -> list:
-    """Report rows of the two LM kernels at the serving path's shapes: the
-    tensor-core kernel the path runs, the simt design at the same shape
-    (called by variant: the path never takes it), the plain version, the
-    library call where there is one, and the bound."""
+def _fa_at(B, cfg, fa_kernel, fa_ref, g) -> dict:
+    """Per-launch numbers of flash attention at batch ``B`` of the LM
+    paths' shape: q (B, 25, 2048, 64), k/v (B, 5, 2048, 64), window."""
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
-    rows = []
-    # flash attention: q (8, 25, 2048, 64), k/v (8, 5, 2048, 64), window
-    case = (LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT, LM_PROMPT,
+    case = (B, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT, LM_PROMPT,
             cfg.hd, True, cfg.window)
     q, k, v = fa_inputs(case, bf16, g)
-    B, Hq, Hkv, L, _, D, _, W = case
+    _, Hq, Hkv, L, _, D, _, W = case
     which = fa_kernel.variant(bf16, D)
     t = in_turns({
         which: lambda: fa_kernel.flash_attention(q, k, v, causal=True,
@@ -2366,43 +2691,29 @@ def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
         "simt": lambda: fa_kernel._run("simt", q, k, v, causal=True,
                                        window=W)},
         {which: 20, "simt": 5})
-    (ms, prof), (prev, prev_prof) = t[which], t["simt"]
-    plain = cuda_time_ms(lambda: fa_ref.mha_ref(q, k, v, causal=True,
-                                                window=W), 3)
     rows_ = torch.arange(L, device="cuda")[:, None]
     cols = torch.arange(L, device="cuda")[None, :]
     band = (rows_ >= cols) & (rows_ - cols < W)
-    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=band, enable_gqa=True), 5)
-    pairs = int(band.sum()) * B * Hq
-    flops = 4 * D * pairs                       # QK^T and PV inside the band
-    nbytes = 2 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D)
-    b_ms, b_by = bound(nbytes, flops, bf16)
-    n = launches["flash_attention"]
-    log(f"  flash_attention {case} bf16, per launch (CUDA events): kernel "
-        f"({which}) {ms:.4f} ms (profiler {prof:.4f} ms), the simt design "
-        f"{prev:.4f} ms (profiler {prev_prof:.4f} ms), plain "
-        f"{plain:.4f} ms, scaled_dot_product_attention with the band mask "
-        f"(enable_gqa=True) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-        f"{flops / ms / 1e9:.2f} TFLOP/s achieved ({b_ms / ms:.3f} of the "
-        f"bound; simt {flops / prev / 1e9:.2f} TFLOP/s)")
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_mma.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
-        "launches": n, "paths": {"serving": {"launches": n}},
-        "max_abs_err": errs["flash_attention"],
-        "ms": ms * n, "plain_ms": plain * n, "bound_ms": b_ms * n,
-        "bound_by": b_by, "library_ms": lib_ms * n, "variant": which,
-        "prev_design_ms": prev * n, "profiler_ms": prof * n})
-    del q, k, v, band
-    torch.cuda.empty_cache()
+    out = {"case": case, "variant": which,
+           "ms": t[which][0], "profiler_ms": t[which][1],
+           "prev_design_ms": t["simt"][0], "prev_profiler_ms": t["simt"][1],
+           "plain_ms": cuda_time_ms(lambda: fa_ref.mha_ref(
+               q, k, v, causal=True, window=W), 3),
+           "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=band, enable_gqa=True), 5)}
+    out["flops"] = 4 * D * int(band.sum()) * B * Hq   # QK^T, PV in the band
+    out["bytes"] = 2 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D)
+    out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["flops"], bf16)
+    return out
 
-    # chunked SSD: l (400, 2048) f32, dtx (400, 2048, 64), B/C (400, 2048, 16)
-    case = (LM_BATCH * cfg.ssm_heads, LM_PROMPT, cfg.ssm_head_dim,
-            cfg.ssm_state, cfg.ssm_chunk)
+
+def _ssd_at(B, cfg, ssd_kernel, ssd_ref, g, stages: bool) -> dict:
+    """Per-call numbers of the chunked SSD at batch ``B`` of the LM paths'
+    shape: l (B 50, 2048) f32, dtx (B 50, 2048, 64), B/C (B 50, 2048, 16);
+    with ``stages``, each stage of the mma kernel alone."""
+    bf16 = torch.bfloat16
+    case = (B * cfg.ssm_heads, LM_PROMPT, cfg.ssm_head_dim, cfg.ssm_state,
+            cfg.ssm_chunk)
     ins = ssd_inputs(case, bf16, g)
     BH, L, P, S, Q = case
     which = ssd_kernel.variant(bf16, P)
@@ -2410,53 +2721,108 @@ def lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
         which: lambda: ssd_kernel.ssd_chunked(*ins, chunk=Q),
         "simt": lambda: ssd_kernel._run_simt(*ins, Q)},
         {which: 20, "simt": 5})
-    (ms, prof), (prev, prev_prof) = t[which], t["simt"]
-    plain = cuda_time_ms(lambda: ssd_ref.ssd_chunked_ref(*ins, chunk=Q), 3)
     tri = Q * (Q + 1) // 2
-    flops = BH * (L // Q) * (2 * Q * P * S          # C . state
-                             + 2 * tri * S          # C B^T, lower triangle
-                             + 2 * tri * P          # (M o G) dtx
-                             + 2 * Q * P * S)       # state increment
-    nbytes = BH * L * (4 + 2 * (2 * P + 2 * S))
-    b_ms, b_by = bound(nbytes, flops, bf16)
-    n = launches["ssd_chunked"]
-    # each stage alone; bytes each stage moves (inputs once, outputs once)
-    _, _, _, args = ssd_kernel._mma_stages(*ins, Q)
-    stream = torch.cuda.current_stream().cuda_stream
-    calls = {st: (lambda st=st: ssd_kernel._launch_stage(st, args[st],
-                                                         stream))
-             for st in ssd_kernel.STAGES}
-    nc, st_bytes = L // Q, BH * (L // Q) * (P * S + 1) * 4
-    stage_bytes = {"chunk_state": BH * L * (4 + 2 * (P + S)) + st_bytes,
-                   "state_pass": BH * nc * (2 * P * S + 1) * 4,
-                   "chunk_scan": BH * L * (4 + 2 * (2 * P + 2 * S))
-                   + st_bytes - BH * nc * 4}
-    stage_ms = {}
-    for stage in ssd_kernel.STAGES:
-        for prior in ssd_kernel.STAGES[:ssd_kernel.STAGES.index(stage)]:
-            calls[prior]()                # the stage's inputs, fresh
-        stage_ms[stage] = cuda_time_ms(calls[stage], 50)
-    log(f"  ssd_chunked {case} bf16, per call (CUDA events): kernel "
-        f"({which}, three launches) {ms:.4f} ms (profiler {prof:.4f} ms), "
-        f"the simt design {prev:.4f} ms (profiler {prev_prof:.4f} ms), plain "
-        f"{plain:.4f} ms, no library call, bound {b_ms:.4f} ms ({b_by}: "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-        f"{nbytes / ms / 1e9:.3f} TB/s achieved ({b_ms / ms:.3f} of the "
-        f"bound; simt {nbytes / prev / 1e9:.3f} TB/s)")
-    for stage, sms in stage_ms.items():
-        log(f"    stage {stage} (CUDA events): {sms:.4f} ms, "
-            f"{stage_bytes[stage] / 1e6:.1f} MB moved, "
-            f"{stage_bytes[stage] / sms / 1e9:.3f} TB/s")
-    rows.append({
-        "name": "ssd_chunked", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd/csrc/ssd_mma.cu",
-        "replaces": "src/repro/kernels/ssd/kernel.py:73",
-        "launches": n, "paths": {"serving": {"launches": n}},
-        "max_abs_err": errs["ssd_chunked"],
-        "ms": ms * n, "plain_ms": plain * n, "bound_ms": b_ms * n,
-        "bound_by": b_by, "library_ms": None, "variant": which,
-        "prev_design_ms": prev * n, "profiler_ms": prof * n,
-        "stage_ms": {k: v * n for k, v in stage_ms.items()}})
+    out = {"case": case, "variant": which,
+           "ms": t[which][0], "profiler_ms": t[which][1],
+           "prev_design_ms": t["simt"][0], "prev_profiler_ms": t["simt"][1],
+           "plain_ms": cuda_time_ms(lambda: ssd_ref.ssd_chunked_ref(
+               *ins, chunk=Q), 3), "library_ms": None,
+           "flops": BH * (L // Q) * (2 * Q * P * S        # C . state
+                                     + 2 * tri * S        # C B^T, triangle
+                                     + 2 * tri * P        # (M o G) dtx
+                                     + 2 * Q * P * S),    # state increment
+           "bytes": BH * L * (4 + 2 * (2 * P + 2 * S))}
+    out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["flops"], bf16)
+    if stages:   # each stage alone; bytes each moves (inputs once, outputs once)
+        _, _, _, args = ssd_kernel._mma_stages(*ins, Q)
+        stream = torch.cuda.current_stream().cuda_stream
+        calls = {st: (lambda st=st: ssd_kernel._launch_stage(
+            st, args[st], stream)) for st in ssd_kernel.STAGES}
+        nc, st_bytes = L // Q, BH * (L // Q) * (P * S + 1) * 4
+        out["stage_bytes"] = {
+            "chunk_state": BH * L * (4 + 2 * (P + S)) + st_bytes,
+            "state_pass": BH * nc * (2 * P * S + 1) * 4,
+            "chunk_scan": BH * L * (4 + 2 * (2 * P + 2 * S))
+            + st_bytes - BH * nc * 4}
+        out["stage_ms"] = {}
+        for stage in ssd_kernel.STAGES:
+            for prior in ssd_kernel.STAGES[:ssd_kernel.STAGES.index(stage)]:
+                calls[prior]()                # the stage's inputs, fresh
+            out["stage_ms"][stage] = cuda_time_ms(calls[stage], 50)
+    return out
+
+
+def lm_kernel_timing(cfg, paths, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
+                     g, errs) -> list:
+    """Report rows of the two LM kernels: on each LM path (``paths``:
+    ``{name: (batch per launch, {kernel: launches})}``) the tensor-core
+    kernel the path runs, the simt design at the same shape (called by
+    variant: the paths never take it), the plain version, the library call
+    where there is one, and the bound, per launch; each row sums them over
+    the paths' launches.  ``errs``: ``{kernel: {case: max abs error}}``
+    from the bfloat16 checks against the plain version; each path's shape
+    must be among them."""
+    rows = []
+    for name, at, src, replaces, unit in (
+            ("flash_attention",
+             lambda B, first: _fa_at(B, cfg, fa_kernel, fa_ref, g),
+             "flash_attention/csrc/flash_attention_mma.cu",
+             "src/repro/kernels/flash_attention/kernel.py:92", "launch"),
+            ("ssd_chunked",
+             lambda B, first: _ssd_at(B, cfg, ssd_kernel, ssd_ref, g, first),
+             "ssd/csrc/ssd_mma.cu", "src/repro/kernels/ssd/kernel.py:73",
+             "call")):
+        per_path, total = {}, collections.Counter()
+        for i, (path, (B, launches)) in enumerate(paths.items()):
+            r = at(B, i == 0)
+            n = launches[name]
+            if r["case"] not in errs[name]:
+                raise AssertionError(f"{name}: the {path} path's shape "
+                                     f"{r['case']} was not checked against "
+                                     f"the plain version")
+            per_path[path] = {"launches": n, "case": r["case"],
+                              "max_abs_err": errs[name][r["case"]],
+                              **{k: r[k] * n for k in (
+                                  "ms", "plain_ms", "bound_ms",
+                                  "prev_design_ms", "profiler_ms")}}
+            if r["library_ms"] is not None:
+                per_path[path]["library_ms"] = r["library_ms"] * n
+            if "stage_ms" in r:
+                per_path[path]["stage_ms"] = {
+                    k: v * n for k, v in r["stage_ms"].items()}
+            total.update({k: v for k, v in per_path[path].items()
+                          if isinstance(v, (int, float))
+                          and k != "max_abs_err"})
+            lib = ("none" if r["library_ms"] is None else
+                   f"{r['library_ms']:.4f} ms")
+            log(f"  {name} at the {path} path's shape {r['case']} bf16, per "
+                f"{unit} (CUDA events): kernel ({r['variant']}) "
+                f"{r['ms']:.4f} ms (profiler {r['profiler_ms']:.4f} ms), the "
+                f"simt design {r['prev_design_ms']:.4f} ms (profiler "
+                f"{r['prev_profiler_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+                f"ms, library call {lib}, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}: {r['flops'] / 1e9:.2f} GFLOP, "
+                f"{r['bytes'] / 1e6:.1f} MB; {r['bound_ms'] / r['ms']:.3f} "
+                f"of the bound); max abs err vs plain at this shape "
+                f"{errs[name][r['case']]:.3e}; x{n} launches on the path")
+            for stage, sms in r.get("stage_ms", {}).items():
+                log(f"    stage {stage} (CUDA events): {sms:.4f} ms, "
+                    f"{r['stage_bytes'][stage] / 1e6:.1f} MB moved, "
+                    f"{r['stage_bytes'][stage] / sms / 1e9:.3f} TB/s")
+            torch.cuda.empty_cache()
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{src}", "replaces": replaces,
+            "launches": total["launches"], "paths": per_path,
+            "max_abs_err": max(p["max_abs_err"]
+                               for p in per_path.values()),
+            "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": total["library_ms"] if "library_ms" in total
+            else None, "variant": r["variant"],
+            "prev_design_ms": total["prev_design_ms"],
+            "profiler_ms": total["profiler_ms"]})
     return rows
 
 
@@ -2468,6 +2834,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch import tree
     from repro_torch.config import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -2558,7 +2925,7 @@ def main() -> int:
     cfg = get_config(LM_ARCH)
     params = transformer.init(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree.leaves(params))
     log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B parameters ({cfg.param_count() / 1e9:.3f} B "
         f"by the config's count), random weights (seed {SEED})")
@@ -2567,11 +2934,23 @@ def main() -> int:
 
     phase("kernel path vs plain path, float32")
     cross_path(cfg, params)
+    del params
     torch.cuda.empty_cache()
 
-    phase("LM kernel timing at the serving path's shapes")
-    kernels += lm_kernel_timing(cfg, launches, fa_kernel, fa_ref, ssd_kernel,
-                                ssd_ref, g, errs)
+    phase(f"training path: {LM_ARCH}, bfloat16, full width")
+    t0 = time.perf_counter()
+    train_launches = training_path(cfg, fa_kernel, ssd_kernel,
+                                   ROOT / "build")
+    phase("training: kernel path vs plain path, float32")
+    training_cross_path(cfg, fa_kernel, ssd_kernel)
+    torch.cuda.empty_cache()
+    log(f"training phases: {time.perf_counter() - t0:.1f} s")
+
+    phase("LM kernel timing at the serving and training paths' shapes")
+    kernels += lm_kernel_timing(
+        cfg, {"serving": (LM_BATCH, launches),
+              "training": (TRAIN_BATCH // TRAIN_MICRO, train_launches)},
+        fa_kernel, fa_ref, ssd_kernel, ssd_ref, g, errs)
 
     phase("report")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2581,14 +2960,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 if __name__ == "__main__":

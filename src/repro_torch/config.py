@@ -1,16 +1,15 @@
-"""Model configuration of the language-model stack, and its registry.
+"""Configuration of the language-model stack: model, shape, training and
+mesh configs, and the model registry.
 
-The port's own copy of ``ModelConfig`` (the reference's ``config.py``
-imports no JAX, but the port imports nothing of the reference package).
-Fields, defaults and derived sizes are the reference's, so a config built
-here describes the same model.  ``ShapeConfig``, ``TrainConfig`` and
-``MeshConfig`` belong to the training path, which is not ported yet
-(ROADMAP.md, queue 1).
+The port's own copy of the reference's ``config.py`` (which imports no
+JAX, but the port imports nothing of the reference package).  Fields,
+defaults and derived sizes are the reference's, so a config built here
+describes the same model, cell or run.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +50,11 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
 
     dtype: str = "bfloat16"
-    # Rematerialisation and layer unrolling shape the reference's compiled
-    # training graph; the port runs eagerly with no backward yet and
-    # ignores them.
+    # train_loss checkpoints each layer (recomputed in the backward pass);
+    # remat_group > 0 adds a checkpoint around each group of that many
+    # layers (two-level remat: one extra in-group forward).  The port
+    # loops over layers in Python either way; unroll_layers drops the group
+    # checkpoint, as the reference's unrolled stack does.
     remat: bool = True
     remat_group: int = 0
     unroll_layers: bool = False
@@ -118,6 +119,73 @@ class ModelConfig:
             per += mults * D * F
         per += 2 * D                                       # norms
         return n + L * per
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One cell: what to run and at which shape."""
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPE_SUITE: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4_096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    ShapeConfig("decode_32k", "decode", 32_768, 128),
+    ShapeConfig("long_500k", "decode", 524_288, 1),
+)
+
+
+def shape_skip_reason(model: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """Why a (model, shape) cell is skipped; None means it runs."""
+    if model.is_encoder and shape.kind == "decode":
+        return "encoder-only architecture has no decode step"
+    if shape.name == "long_500k":
+        sub_quadratic = model.mixer in ("ssm", "hybrid") or model.window
+        if not sub_quadratic:
+            return ("pure full-attention architecture: 512k decode needs "
+                    "sub-quadratic attention (see DESIGN.md S4)")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seq_len: int = 1024
+    global_batch: int = 8
+    microbatches: int = 1        # grad-accumulation steps
+    # Sharding of the reference's multi-device step (ZeRO-1 optimizer
+    # state, compressed all-reduce); the port trains on one card.
+    zero1: bool = True
+    grad_compress: bool = False
+    seed: int = 0
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    log_every: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    data: int = 1
+    model: int = 1
+    pod: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.pod
 
 
 _REGISTRY: dict = {}

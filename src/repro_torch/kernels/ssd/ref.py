@@ -16,10 +16,17 @@ The SSD recurrence is the paper's affine trajectory recursion (eqs.
   chunk-parallel kernel (``csrc/ssd_mma.cu``), with the entering chunk
   states, and optionally the kernel's bf16 hi/lo split of its float32
   operands (:func:`bf16_split`).
+* :func:`ssd_scan_chunked` -- the model's plain SSD (the reference's
+  ``models/ssm.py::ssd_scan_jnp``): the skip connection included, chunk
+  elements folded by an associative scan.  The plain path of
+  ``models/ssm.py`` and what ``ops.ssd_trainable`` differentiates.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core.pscan import prefix_scan
 
 
 def ssd_ref(x, dt, A, B, C, D=None):
@@ -153,3 +160,84 @@ def ssd_staged_ref(l, dtx, B, C, *, chunk: int, split_bf16: bool = False):
     y_intra = mm("bctk,bckp->bctp", M * G, x)
     y = (y_inter + y_intra).to(dtx.dtype).reshape(BH, L, P)
     return y, states
+
+
+def ssd_scan_chunked(x, dt, A, B, C, D, chunk: int):
+    """Chunked SSD in float32: the paper's block-element + scan pattern.
+
+    Stage 1 builds per-chunk elements, stage 2 folds them with an
+    associative prefix scan (eqs. 45-46, diagonal Phi), stage 3 emits the
+    per-chunk outputs one chunk at a time (the (Q, Q, H) decay tensor
+    exists for one chunk only).
+
+    x: (b, L, H, P); dt: (b, L, H); A: (H,); B, C: (b, L, G, S); D: (H,).
+    """
+    b, L0, H, Pd = x.shape
+    G, S = B.shape[2], B.shape[3]
+    rep = H // G
+    Q = min(chunk, L0)
+    pad = (-L0) % Q
+    if pad:  # dt=0 padding steps are exact identity elements
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    L = L0 + pad
+    nc = L // Q
+
+    f32 = torch.float32
+    l = dt.float() * A.float()[None, None, :]                 # (b, L, H)
+    dtx = dt.float()[..., None] * x.float()                   # (b, L, H, P)
+
+    # chunk-major views (chunk axis first for the scan)
+    lc = l.reshape(b, nc, Q, H).movedim(1, 0)                 # (nc,b,Q,H)
+    cum = torch.cumsum(lc, dim=2)
+    total = cum[:, :, -1]                                     # (nc,b,H)
+    dtxc = dtx.reshape(b, nc, Q, H, Pd).movedim(1, 0)
+    Bc = B.float().reshape(b, nc, Q, G, S).movedim(1, 0)
+    Cc = C.float().reshape(b, nc, Q, G, S).movedim(1, 0)
+
+    # stage 1 -- per-chunk elements (parallel over chunks):
+    w = torch.exp(total[:, :, None] - cum)[..., None] * dtxc  # (nc,b,Q,H,P)
+    wg = w.reshape(nc, b, Q, G, rep, Pd)
+    inc = torch.einsum("nbqgrp,nbqgs->nbgrps", wg, Bc)
+    inc = inc.reshape(nc, b, H, Pd, S)                        # (nc,b,H,P,S)
+
+    # stage 2 -- associative inter-chunk scan (paper eqs. 45-46):
+    def combine(e1, e2):
+        t1, i1 = e1
+        t2, i2 = e2
+        return (t1 + t2, torch.exp(t2)[..., None, None] * i1 + i2)
+
+    _, inc_in = prefix_scan(combine, (total, inc))
+    # exclusive prefix: state entering chunk c
+    h_prev = torch.cat(
+        [torch.zeros((1, b, H, Pd, S), dtype=f32, device=x.device),
+         inc_in[:-1]], dim=0)
+
+    # stage 3 -- per-chunk outputs, one chunk in flight at a time:
+    ids = torch.arange(Q, device=x.device)
+    causal = ids[:, None] >= ids[None, :]
+    ys = []
+    for c in range(nc):
+        cumc, dtxk, Bk, Ck, hk = cum[c], dtxc[c], Bc[c], Cc[c], h_prev[c]
+        # inter: y_t = exp(cum_t) * C_t . h_prev
+        hg = hk.reshape(b, G, rep, Pd, S)
+        y_inter = torch.einsum("bqgs,bgrps->bqgrp", Ck, hg)
+        y_inter = y_inter * torch.exp(cumc).reshape(b, Q, G, rep, 1)
+        # intra: masked decay kernel
+        Gmat = torch.einsum("bqgs,bkgs->bgqk", Ck, Bk)        # (b,G,Q,Q)
+        # masked before exp: above the diagonal cum_t - cum_s >= 0 can
+        # overflow, and exp's gradient there would be 0 * inf = nan
+        dec = torch.exp(torch.where(
+            causal[None, :, :, None],
+            cumc[:, :, None, :] - cumc[:, None, :, :],
+            torch.full((), float("-inf"), dtype=f32, device=x.device)))
+        decg = dec.reshape(b, Q, Q, G, rep)
+        M = Gmat.permute(0, 2, 3, 1)[..., None] * decg        # (b,Q,Q,G,rep)
+        dtxg = dtxk.reshape(b, Q, G, rep, Pd)
+        y_intra = torch.einsum("bqkgr,bkgrp->bqgrp", M, dtxg)
+        ys.append((y_inter + y_intra).reshape(b, Q, H, Pd))
+    y = torch.stack(ys, dim=1).reshape(b, L, H, Pd)
+    y = y + D.float()[None, None, :, None] * x.float()
+    return y[:, :L0].to(x.dtype)

@@ -5,9 +5,10 @@ Two execution paths for the full sequence (train / prefill):
 * ``chunked_mha`` -- streaming-softmax attention in plain PyTorch (a loop
   over q chunks and kv chunks).  Never materialises the (L, L) logits.
   The reference's ``ServeEngine`` runs this path.
-* ``use_kernel=True`` -- the CUDA flash-attention kernel
-  (``repro_torch.kernels.flash_attention``), as the reference swaps in its
-  Pallas kernel on the accelerator.  On CPU tensors the kernel wrapper
+* ``use_kernel=True`` -- ``attention_trainable``: the CUDA flash-attention
+  kernel (``repro_torch.kernels.flash_attention``) forward, as the
+  reference swaps in its Pallas kernel on the accelerator, and the
+  backward of the plain ``mha_ref``.  On CPU tensors the kernel wrapper
   runs its plain version.
 
 The decode path is single-token attention against a (possibly rolling)
@@ -24,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.flash_attention import attention as flash_attention
+from repro_torch.kernels.flash_attention import attention_trainable
 
 from .layers import P, apply_rope, rms_norm, rope_freqs
 
@@ -139,7 +140,7 @@ def attention_forward(params, x, cfg: ModelConfig, positions, *,
     q, k, v = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     causal = cfg.causal and not cfg.is_encoder
     if use_kernel:
-        o = flash_attention(q, k, v, causal=causal, window=cfg.window)
+        o = attention_trainable(q, k, v, causal, cfg.window)
     else:
         o = chunked_mha(q, k, v, causal=causal, window=cfg.window)
     return _out_proj(o.transpose(1, 2), params["wo"])

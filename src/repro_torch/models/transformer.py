@@ -2,23 +2,27 @@
 
 Weights are stacked over layers on a leading axis, as in the reference;
 where the reference scans over that axis (``lax.scan``), the port loops
-over it in Python.  The reference's ``remat``/``remat_group`` choose what
-its backward recomputes; the port has no backward yet and ignores them.
+over it in Python.  ``train_loss`` honours the reference's remat choices
+with ``torch.utils.checkpoint``: ``remat`` checkpoints each layer and
+``remat_group`` adds a checkpoint around each group of layers (nested).
 
 Public entry points:
   init                        parameter tree
+  train_loss                  tokens -> scalar loss (differentiable)
   prefill                     full-sequence forward -> logits + caches
   decode_step                 one token with caches -> logits + caches
 
-Not ported yet (ROADMAP.md, queue 1): ``train_loss``, the MoE layer, and
+Not ported yet (ROADMAP.md, queue 1): the MoE layer and
 ``input_mode="embeddings"``; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 
@@ -44,9 +48,13 @@ def _mlp_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def layer_spec(cfg: ModelConfig) -> dict:
+def _no_moe(cfg: ModelConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(f"the MoE layer {_NOT_PORTED}")
+
+
+def layer_spec(cfg: ModelConfig) -> dict:
+    _no_moe(cfg)
     spec: dict = {"ln1": P((cfg.d_model,), ("embed",), init="ones")}
     if cfg.mixer in ("attn", "hybrid"):
         spec["attn"] = attn_mod.attn_spec(cfg)
@@ -142,8 +150,75 @@ def _layer_forward(p, x, cfg: ModelConfig, positions, use_kernel):
     return _ffn(p, x + mix, cfg)
 
 
-def train_loss(params, batch, cfg: ModelConfig, **kw):
-    raise NotImplementedError(f"train_loss {_NOT_PORTED}")
+def _unstack(tree: dict, n: int) -> list:
+    """Per-layer trees of a tree stacked over ``n`` layers, by one
+    ``torch.unbind`` per leaf: its backward writes every layer's gradient
+    into one buffer of the leaf's size (taking ``v[i]`` per layer would
+    add a zero-filled gradient of the whole leaf for each layer)."""
+    parts = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+             for k, v in tree.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+def _checkpointed(fn, *args):
+    # the layers draw no random numbers: no RNG state to restore
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _grouped(cfg: ModelConfig) -> bool:
+    # the reference's unrolled stack has no group checkpoint
+    g, n = cfg.remat_group, cfg.num_layers
+    return bool(g) and n % g == 0 and n > g and not cfg.unroll_layers
+
+
+def _stack_forward(params, x, cfg: ModelConfig, positions, *,
+                   use_kernel=False):
+    """The layers, then the final norm.  ``remat`` checkpoints each layer;
+    ``remat_group = g`` (with ``g`` dividing and below the depth, and the
+    layers not unrolled, as in the reference) also checkpoints each group
+    of ``g`` layers, nested."""
+    layers = _unstack(params["layers"], cfg.num_layers)
+    step = functools.partial(_layer_forward, cfg=cfg, positions=positions,
+                             use_kernel=use_kernel)
+    if cfg.remat:
+        step = functools.partial(_checkpointed, step)
+
+    def run(x, lo, hi):
+        for p in layers[lo:hi]:
+            x = step(p, x)
+        return x
+
+    n = cfg.num_layers
+    if _grouped(cfg):
+        for lo in range(0, n, cfg.remat_group):
+            x = _checkpointed(run, x, lo, lo + cfg.remat_group)
+    else:
+        x = run(x, 0, n)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False):
+    """Next-token cross-entropy, in float32.
+
+    batch: ``{"tokens": (B, L) int, "labels": (B, L) int}`` and optionally
+    ``"loss_mask"`` (B, L).  ``use_kernel`` runs the attention and SSD
+    forwards through the CUDA kernels (``attention_trainable``,
+    ``ssd_trainable``); their backward passes are autograd through the
+    plain versions, as in the reference.
+    """
+    _no_moe(cfg)
+    x = _embed_in(params, batch, cfg)
+    L = x.shape[1]
+    positions = torch.arange(L, dtype=torch.float32, device=x.device)
+    h = _stack_forward(params, x, cfg, positions, use_kernel=use_kernel)
+    logits = _lm_logits(params, h, cfg)
+    labels = batch["labels"].long()  # < vocab_size, never a pad column
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 class LayerCaches(NamedTuple):

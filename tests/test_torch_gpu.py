@@ -1,4 +1,5 @@
-"""Tests of the port that need a CUDA card: the LM kernels on the card,
+"""Tests of the port that need a CUDA card: the LM kernels on the card
+(also under autograd, and a training step through them),
 the whole-scan ``lqt_scan`` kernel against its plain scan, and the
 nonlinear estimation paths (the iterated Taylor and sigma-point
 smoothers), the estimation serving engines (``TrajectoryEngine``,
@@ -95,6 +96,123 @@ def test_serve_kernel_path_matches_plain_path_on_card(card):
         want = 2 * cfg.num_layers if use_kernel else 0     # two waves
         assert fa_kernel.launch_count() == ssd_kernel.launch_count() == want
     np.testing.assert_array_equal(outs[True], outs[False])
+
+
+def _normwise_err(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trainable_ops_on_card_match_autograd_through_plain(card, dtype):
+    """``attention_trainable`` and ``ssd_trainable`` on the card: the
+    forward is one kernel launch within the kernel's tolerance of the plain
+    version, and the gradients are autograd through the plain versions
+    (``mha_ref``; ``ssd_scan_chunked``) on the same inputs."""
+    g = card
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+
+    def leaves(*shapes):
+        return [torch.randn(s, generator=g, device="cuda").to(dtype)
+                .requires_grad_() for s in shapes]
+
+    q, k, v = leaves((2, 4, 256, 64), (2, 2, 256, 64), (2, 2, 256, 64))
+    before = fa_kernel.launch_count()
+    o = tfa.attention_trainable(q, k, v, True, 96)
+    assert fa_kernel.launch_count() == before + 1
+    go = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
+    got = torch.autograd.grad(o, (q, k, v), go)
+    ref = tfa.mha_ref(q, k, v, causal=True, window=96)
+    want = torch.autograd.grad(ref, (q, k, v), go)
+    assert fa_kernel.launch_count() == before + 1
+    assert torch.allclose(o.float(), ref.float(),
+                          rtol=2e-5 if dtype == torch.float32 else 2e-2,
+                          atol=2e-5 if dtype == torch.float32 else 2e-2)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and _normwise_err(a, b) <= tol
+
+    b_, L, H, P, G, S = 2, 512, 8, 64, 1, 16
+    x, Bm, Cm = leaves((b_, L, H, P), (b_, L, G, S), (b_, L, G, S))
+    dt = torch.nn.functional.softplus(torch.randn(
+        (b_, L, H), generator=g, device="cuda")).to(dtype).requires_grad_()
+    A = (-torch.rand(H, generator=g, device="cuda") - 0.5).requires_grad_()
+    D = torch.randn(H, generator=g, device="cuda").to(dtype)
+    D.requires_grad_()
+    ins = (x, dt, A, Bm, Cm, D)
+    before = ssd_kernel.launch_count()
+    y = tssd.ssd_trainable(*ins, 256)
+    assert ssd_kernel.launch_count() == before + 1
+    gy = torch.randn(y.shape, generator=g, device="cuda").to(dtype)
+    got = torch.autograd.grad(y, ins, gy)
+    ref = tssd.ssd_scan_chunked(*ins, 256)
+    want = torch.autograd.grad(ref, ins, gy)
+    assert ssd_kernel.launch_count() == before + 1
+    assert _normwise_err(y, ref) <= (2e-5 if dtype == torch.float32
+                                     else 0.04)
+    for a, b, t in zip(got, want, ins):
+        assert a.dtype == t.dtype and _normwise_err(a, b) <= tol
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """hymba-1.5b-smoke in float32: two steps of two microbatches through
+    the kernels on the card against the plain path on the CPU, from the
+    same weights and batches; each kernel launches once per forward of a
+    layer (remat recomputes included); then a ``Trainer`` on the card
+    trains, checkpoints and resumes."""
+    from repro_torch import tree
+    from repro_torch.config import TrainConfig
+    from repro_torch.train import Trainer, adamw_init, make_train_step
+    from repro_torch.train.data import LMDataPipeline
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b-smoke"),
+                              dtype="float32")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4,
+                       global_batch=4, seq_len=64, microbatches=2,
+                       checkpoint_every=2, log_every=1)
+    pipe = LMDataPipeline(vocab_size=cfg.vocab_size, seq_len=64,
+                          global_batch=4)
+    cpu = transformer.init(cfg, torch.Generator().manual_seed(0))
+    gpu = tree.tree_map(lambda t: t.cuda(), cpu)
+    kernel_step = make_train_step(cfg, tcfg, lambda p, b: transformer.
+                                  train_loss(p, b, cfg, use_kernel=True))
+    plain_step = make_train_step(cfg, tcfg)
+    states = {"cuda": (gpu, adamw_init(gpu)), "cpu": (cpu, adamw_init(cpu))}
+    layer_forward, forwards = transformer._layer_forward, [0]
+
+    def counting(*a, **k):
+        forwards[0] += 1
+        return layer_forward(*a, **k)
+
+    fa_kernel.reset_launch_count()
+    ssd_kernel.reset_launch_count()
+    for step in range(2):
+        batch = pipe.batch_at(step)
+        monkeypatch.setattr(transformer, "_layer_forward", counting)
+        states["cuda"] = kernel_step(*states["cuda"][:2], tree.tree_map(
+            lambda t: t.cuda(), batch))
+        monkeypatch.setattr(transformer, "_layer_forward", layer_forward)
+        states["cpu"] = plain_step(*states["cpu"][:2], batch)
+    assert forwards[0] >= 2 * tcfg.microbatches * cfg.num_layers
+    assert (fa_kernel.launch_count() == ssd_kernel.launch_count()
+            == forwards[0])
+    for k in ("loss", "grad_norm"):
+        assert abs(float(states["cuda"][2][k]) - float(states["cpu"][2][k])
+                   ) <= 1e-4 * abs(float(states["cpu"][2][k]))
+    for a, b in zip(tree.leaves(states["cuda"][:2]),
+                    tree.leaves(states["cpu"][:2])):
+        assert _normwise_err(a.cpu(), b) <= 1e-4
+
+    logs = []
+    run = Trainer(cfg=cfg, tcfg=tcfg, pipeline=pipe, ckpt_dir=str(tmp_path),
+                  log_fn=logs.append).run(steps=2)
+    assert run[0]["embed"].device.type == "cuda" and int(run[1].step) == 2
+    _, opt, metrics = Trainer(cfg=cfg, tcfg=tcfg, pipeline=pipe,
+                              ckpt_dir=str(tmp_path),
+                              log_fn=logs.append).run(steps=4)
+    assert int(opt.step) == 4 and bool(torch.isfinite(metrics["loss"]))
+    assert any("resumed" in m for m in logs)
 
 
 # (B, Hq, Hkv, Lq, Lk, D, window): each head size of the tensor-core

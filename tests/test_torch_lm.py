@@ -311,14 +311,16 @@ def test_serve_cli_on_cpu(capsys):
 
 def test_unported_parts_raise(model):
     _, tcfg, _, tparams = model
+    moe = dataclasses.replace(tcfg, moe_experts=4, moe_topk=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tf.train_loss(tparams, {}, tcfg)
+        t_tf.init(moe, torch.Generator())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tf.init(dataclasses.replace(tcfg, moe_experts=4, moe_topk=2),
-                  torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tf.prefill(tparams, {"embeddings": torch.zeros(1, 4, 64)},
-                     dataclasses.replace(tcfg, input_mode="embeddings"), 8)
+        t_tf.train_loss(tparams, {}, moe)
+    emb = dataclasses.replace(tcfg, input_mode="embeddings")
+    for fn in (lambda b: t_tf.prefill(tparams, b, emb, 8),
+               lambda b: t_tf.train_loss(tparams, b, emb)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn({"embeddings": torch.zeros(1, 4, 64)})
     with pytest.raises(ValueError, match="chunked_mha"):
         t_attn.chunked_mha(torch.zeros(1, 5, 600, 16),
                            torch.zeros(1, 1, 600, 16),
