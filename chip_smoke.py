@@ -25,11 +25,12 @@ Phases, each of which fails the run on any miss:
                  ``kernel_suffix_scan`` against the core suffix scan;
                  ``flash_attention`` and
                  ``ssd_chunked`` in float32 and bfloat16 on the reference's
-                 small test cases and at hymba-1.5b's prefill and
-                 training-microbatch shapes (the errors the report gives
-                 each path), plus
-                 bfloat16 cases for the tensor-core tiling, each case
-                 naming the variant it ran; the SSD ``mma`` kernel's
+                 small test cases, at D = 80 (hubert's and danube's
+                 shapes, ragged edges), and at every LM path's prefill or
+                 training-microbatch shape (hymba-1.5b, granite-moe-3b,
+                 the zoo's waves: the errors the report gives each path),
+                 plus bfloat16 cases for the tensor-core tiling, each
+                 case naming the variant it ran; the SSD ``mma`` kernel's
                  stage-2 chunk states against the staged plain version;
 3. estimation -- ``Estimator(method="parallel_kernel").solve`` on the
                  Wiener velocity model (paper section 5.1) at T = 2048
@@ -152,10 +153,38 @@ Phases, each of which fails the run on any miss:
                  2048 tokens: ``train_loss`` and every gradient leaf through
                  the kernels (``simt``, under the autograd Functions)
                  against the plain path, normwise within 1e-3;
-6. LM kernels -- each LM kernel's time at the serving and training paths'
-                 shapes, beside the simt design at the same shape (timed in
-                 turns), its plain version, the PyTorch library call where
-                 there is one, its bound, and each SSD stage's time;
+5d. MoE serving -- ``ServeEngine.generate`` on granite-moe-3b-a800m (40
+                 experts, top 8) at full width and depth in bfloat16, the
+                 hymba cell's shape: 32 ``mma`` attention launches per
+                 wave and no SSD, prefill ms per wave, decode ms per step,
+                 tokens/s, the dropped fraction of expert assignments per
+                 layer at prefill (the layer's own rank and capacity), and
+                 one profiled prefill and decode step with the MoE layer's
+                 share of busy time;
+5e. MoE cross-path -- granite's weights at 2 layers in float32, one wave:
+                 the kernel path's last logits against the plain path's
+                 within 1e-3 and the same first tokens, with the expert
+                 choices the two paths route differently per layer;
+5f. MoE training -- ``Trainer.run`` on granite-moe-3b at full width and 16
+                 of its 32 layers in bfloat16, 8 x 2048 tokens a step in 2
+                 microbatches for 4 steps: finite losses (the router
+                 balance term included), ``remat_forwards`` x 2 ``mma``
+                 attention launches a step, the peak memory, and a nonzero
+                 router gradient in every layer; then 5c on granite's
+                 widths with the routing differences of the forward;
+5g. the zoo   -- the other eight architectures (mamba2, smollm, qwen3,
+                 danube, starcoder2, hubert, llava, phi3.5) at full width
+                 and 2 layers: 5c at 2 x 2048 tokens (embeddings for
+                 hubert and llava), and for each token-input decoder one
+                 bfloat16 ``ServeEngine`` wave of 2 x 2048 prompts and 4
+                 new tokens, every attention (D = 64, 80, 128) and SSD
+                 (S = 128) launch of the ``mma`` variant, finite logits;
+6. LM kernels -- each LM kernel's time at every LM path's shapes (hymba's
+                 serving and training, granite's serving and training, the
+                 zoo's waves), beside the simt design at the same shape
+                 (timed in turns), its plain version, the PyTorch library
+                 call where there is one, its bound, and each SSD stage's
+                 time;
 7. report     -- one JSON line of per-kernel numbers, the card's name and
                  power limit, and the final status line.
 
@@ -166,7 +195,9 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -263,6 +294,23 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_TOTAL = (
 # layers, 2 sequences of 2048 tokens; the loss and each gradient leaf
 # (normwise) within the float32 forward check's bound (CROSS_RTOL)
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH = 2, 2
+# granite-moe-3b-a800m: served at full width and depth in the hymba serving
+# cell's shape; trained at full width with the depth cut from 32 to 16
+# layers (AdamW state and gradient buffers take ~20 B a parameter: 66 GB at
+# 32 layers), 8 x 2048 tokens a step in 2 microbatches, 4 steps; its
+# float32 checks at 2 layers (serving: one wave of 8 x 2048; training:
+# 2 x 2048, as hymba's)
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 16, 4
+# the zoo: the other eight architectures at full width, depth cut to 2
+# layers (llava and phi3.5 do not fit the card whole): train_loss in
+# float32 through the kernels against the plain path, 2 x 2048 tokens; a
+# serving wave of 2 x 2048 prompts and 4 new tokens in bfloat16 for each
+# token-input decoder
+ZOO = ("mamba2-370m", "smollm-135m", "qwen3-4b", "h2o-danube-1.8b",
+       "starcoder2-15b", "hubert-xlarge", "llava-next-34b",
+       "phi3.5-moe-42b-a6.6b")
+ZOO_LAYERS, ZOO_BATCH, ZOO_NEW = 2, 2, 4
 # name fragments of the port's kernels in a profiler trace
 PORT_KERNELS = ("flash_attn", "ssd_", "lqt_combine", "lqt_scan")
 
@@ -273,7 +321,7 @@ def log(msg: str) -> None:
 
 def phase(name: str):
     torch.cuda.synchronize()
-    log(f"== {name}")
+    log(f"== {name} (at {time.perf_counter() - _STARTED:.1f} s)")
 
 
 def card() -> str:
@@ -288,6 +336,7 @@ def card() -> str:
 
 
 _CARD = None
+_STARTED = time.perf_counter()
 
 
 def random_pairs(nx, B, dtype, g):
@@ -436,18 +485,22 @@ def kernel_name(key: str) -> str:
     return m.group(0) if m else key[:60]
 
 
-def profile_summary(label: str, fn, wall_ms: float) -> float:
+def profile_summary(label: str, fn, wall_ms: float,
+                    share_of: str | None = None) -> float:
     """One profiled call: device kernels, busy time against ``wall_ms``
-    (the call's CUDA-event time without the profiler), top kernels.
-    Returns the busy ms."""
+    (the call's CUDA-event time without the profiler), top kernels, and
+    with ``share_of`` the device time of the kernels launched inside the
+    ``record_function`` ranges of that name.  Returns the busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the device-side spans of share_of's ranges are not kernels
     kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key != share_of]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     count = sum(e.count for e in kern)
     log(f"  {label}: {count} device kernels, device busy {busy:.3f} ms of "
@@ -456,6 +509,12 @@ def profile_summary(label: str, fn, wall_ms: float) -> float:
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
+    if share_of is not None:
+        ranges = [e for e in prof.events() if e.name == share_of
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        t = sum(e.device_time_total for e in ranges) / 1e3
+        log(f"    {len(ranges)} {share_of} ranges: {t:.3f} ms of device "
+            f"time, {t / busy:.3f} of busy")
     ours = [e for e in kern if any(n in e.key for n in PORT_KERNELS)]
     if ours:
         t = sum(e.self_device_time_total for e in ours) / 1e3
@@ -628,11 +687,15 @@ def check_scan(g, lqt_scan, lqt_ref) -> None:
 
 
 # (B, Hq, Hkv, Lq, Lk, D, causal, window): the reference's five test cases,
-# two ragged-edge cases, and hymba-1.5b's prefill (batch 8) and training
-# microbatch (batch 4), in both dtypes; then
-# bfloat16 cases for the tensor-core kernel's tiling: D in {16, 32, 128},
-# Lq < Lk (decode alignment), Lq and Lk off the 64-row tiles, windows off
-# the tiles, and no causal mask.
+# two ragged-edge cases, hymba-1.5b's prefill (batch 8) and training
+# microbatch (batch 4), granite-moe-3b's (the same batches), the zoo's
+# prefill waves of 2 x 2048 (smollm 9/3 heads; qwen3 and phi3.5 32/8 at
+# D = 128; danube 32/8 at D = 80 with its 4096 window; starcoder2 48/4 at
+# D = 128) and hubert's non-causal MHA at D = 80, and two ragged-edge
+# cases at D = 80, in both dtypes; then
+# bfloat16 cases for the tensor-core kernel's tiling: D in {16, 32, 80,
+# 128}, Lq < Lk (decode alignment), Lq and Lk off the 64-row tiles, windows
+# off the tiles, and no causal mask.
 FA_CASES = [
     (2, 4, 2, 64, 64, 16, True, None),
     (1, 6, 2, 32, 32, 32, True, 24),
@@ -643,6 +706,15 @@ FA_CASES = [
     (1, 4, 2, 200, 200, 64, True, 70),
     (8, 25, 5, 2048, 2048, 64, True, 1024),
     (4, 25, 5, 2048, 2048, 64, True, 1024),
+    (8, 24, 8, 2048, 2048, 64, True, None),
+    (4, 24, 8, 2048, 2048, 64, True, None),
+    (2, 9, 3, 2048, 2048, 64, True, None),
+    (2, 32, 8, 2048, 2048, 128, True, None),
+    (2, 32, 8, 2048, 2048, 80, True, 4096),
+    (2, 48, 4, 2048, 2048, 128, True, None),
+    (2, 16, 16, 2048, 2048, 80, False, None),
+    (1, 4, 2, 100, 300, 80, True, None),
+    (1, 6, 2, 200, 200, 80, True, 70),
 ]
 FA_MMA_CASES = [
     (2, 4, 2, 128, 128, 16, True, None),
@@ -653,10 +725,14 @@ FA_MMA_CASES = [
     (1, 25, 5, 200, 200, 64, True, 100),
     (1, 4, 2, 80, 130, 32, False, None),
     (1, 4, 2, 64, 200, 128, False, 50),
+    (1, 4, 1, 1, 300, 80, True, None),
+    (3, 4, 2, 7, 1000, 80, True, 130),
+    (1, 4, 4, 80, 130, 80, False, None),
 ]
 # (BH, L, P, S, chunk): the reference's four test shapes (heads folded in),
-# two more, and hymba-1.5b's prefill (8 x 50 heads) and training microbatch
-# (4 x 50 heads), in both dtypes; then
+# two more, hymba-1.5b's prefill (8 x 50 heads) and training microbatch
+# (4 x 50 heads), and mamba2-370m's prefill wave in the zoo (2 x 32 heads,
+# state 128), in both dtypes; then
 # bfloat16 cases for the chunk-parallel kernel's tiling: S in {8, 64, 128},
 # P in {16, 128}, chunks of 64, 100 and 256.
 SSD_CASES = [
@@ -668,6 +744,7 @@ SSD_CASES = [
     (3, 300, 64, 16, 100),
     (400, 2048, 64, 16, 256),
     (200, 2048, 64, 16, 256),
+    (64, 2048, 64, 128, 256),
 ]
 SSD_MMA_CASES = [
     (4, 512, 16, 8, 256),
@@ -797,21 +874,27 @@ def check_ssd(g, ssd_kernel, ssd_ref) -> dict:
 # 3. estimation path
 # ---------------------------------------------------------------------------
 
-def median_solve_ms(est, problem, runs: int = 5,
-                    warm_up: bool = True) -> float:
+def timed_solve(est, problem) -> tuple:
+    """One solve and its time in ms by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sol = est.solve(problem)
+    stop.record()
+    torch.cuda.synchronize()
+    return sol, start.elapsed_time(stop)
+
+
+def median_solve_ms(est, problem, runs: int = 5, warm_up: bool = True,
+                    taken: tuple = ()) -> float:
     """Median of ``runs`` solves by CUDA events, after one warm-up (the
-    caller may have made it already)."""
+    caller may have made it already); ``taken`` are the times of solves
+    the caller has already timed, counted among the ``runs``."""
     if warm_up:
         est.solve(problem)
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        est.solve(problem)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+    times = list(taken)
+    while len(times) < runs:
+        times.append(timed_solve(est, problem)[1])
     return statistics.median(times)
 
 
@@ -982,6 +1065,7 @@ def nonlinear_path(lqt_kernel, lqt_scan) -> tuple:
     def max_dx(a, b):
         return float((a.x - b.x).abs().max())
 
+    seq_gate_ms = {}
     for name, p in problems.items():
         sol = sols[name]
         lead = () if name == "single" else (RECORDS,)
@@ -1001,11 +1085,12 @@ def nonlinear_path(lqt_kernel, lqt_scan) -> tuple:
         log(f"  {name}: cost trace (record 0) "
             f"{[round(float(c), 3) for c in trace.reshape(-1, NL_ITERS)[0]]}"
             f", step norms {[f'{float(c):.2e}' for c in sol.step_norms.reshape(-1, NL_ITERS)[0]]}")
+        seq_sol, seq_gate_ms[name] = timed_solve(ests["sequential_rts"], p)
         gates = (
             ("parallel_kernel vs parallel_rts (cuda)", max_dx(
                 sol, ests["parallel_rts"].solve(p)), NL_KERNEL_TOL),
             (f"parallel_kernel vs sequential_rts (cuda, {NL_MODE})",
-             max_dx(sol, ests["sequential_rts"].solve(p)), NL_SEQ_TOL),
+             max_dx(sol, seq_sol), NL_SEQ_TOL),
             ("parallel_two_filter vs parallel_rts (cuda, discrete)",
              max_dx(est_tf.solve(p), est_rd.solve(p)), NL_TF_TOL))
         for label, dx, tol in gates:
@@ -1016,16 +1101,18 @@ def nonlinear_path(lqt_kernel, lqt_scan) -> tuple:
                 raise AssertionError(f"{name}: {label} max|dx| {dx:.3e} >= "
                                      f"{tol:.0e}")
 
-    # sequential_rts takes 12-15 s a solve (~5120 eager steps a pass): its
-    # gate above was its warm-up on each problem
+    # sequential_rts takes 12-20 s a solve (~5120 eager steps a pass): its
+    # timed gate solve above is the first of its 5 runs on each problem
     solve_ms = {}
     for name, p in problems.items():
         for label, e in ests.items():
             seq = label == "sequential_rts"
-            solve_ms[(name, label)] = median_solve_ms(e, p, warm_up=not seq)
+            solve_ms[(name, label)] = median_solve_ms(
+                e, p, warm_up=not seq, taken=(seq_gate_ms[name],) if seq
+                else ())
             log(f"  solve {name} {label}: median "
                 f"{solve_ms[(name, label)]:.3f} ms over 5 runs (CUDA events, "
-                f"after {'its gate solve' if seq else 'one warm-up'})")
+                f"{'the first its gate solve' if seq else 'after one warm-up'})")
         log(f"  {name}: sequential_rts / parallel_kernel = "
             f"{solve_ms[(name, 'sequential_rts')] / solve_ms[(name, 'parallel_kernel')]:.2f}")
 
@@ -2234,11 +2321,82 @@ def combine_timing(g, lqt_kernel, lqt_ref, paths: dict) -> dict:
 # 4-6. language-model serving path
 # ---------------------------------------------------------------------------
 
-def lm_requests(cfg, Request):
+def lm_requests(cfg, Request, n=LM_REQUESTS, new=LM_NEW):
     rng = np.random.default_rng(SEED)
     return [Request(prompt=rng.integers(0, cfg.vocab_size, LM_PROMPT)
-                    .astype(np.int32), max_new_tokens=LM_NEW)
-            for _ in range(LM_REQUESTS)]
+                    .astype(np.int32), max_new_tokens=new)
+            for _ in range(n)]
+
+
+def lm_kernel_launches(cfg, runs: int) -> dict:
+    """Each LM kernel's launches when every layer's mixer runs ``runs``
+    times in all: attention for attn and hybrid mixers, SSD for ssm and
+    hybrid ones."""
+    return {"flash_attention": runs if cfg.mixer in ("attn", "hybrid") else 0,
+            "ssd_chunked": runs if cfg.mixer in ("ssm", "hybrid") else 0}
+
+
+def counted_launches(fa_kernel, ssd_kernel, want: dict, variant: str,
+                     label: str) -> dict:
+    """The two LM kernels' launches since their counts were reset, held to
+    ``want`` (``{kernel: launches}``), every one of ``variant``."""
+    launches = {"flash_attention": fa_kernel.launch_count(),
+                "ssd_chunked": ssd_kernel.launch_count()}
+    of_variant = {"flash_attention": fa_kernel.launch_count(variant),
+                  "ssd_chunked": ssd_kernel.launch_count(variant)}
+    log(f"{label} launches: {launches}, of the {variant} variant "
+        f"{of_variant}; expected {want}")
+    if launches != want or of_variant != want:
+        raise AssertionError(f"{label}: launches {launches} ({variant} "
+                             f"{of_variant}), expected {want}, all {variant}")
+    return launches
+
+
+@contextlib.contextmanager
+def moe_calls(routings: dict | None = None, label: str | None = None,
+              replay: dict | None = None):
+    """While active, each call of ``models.moe.moe_forward`` records its
+    routing (``moe.route`` run again on the call's input, outside the
+    layer) in ``routings`` under its layer's key (the address of its
+    router weight), and runs inside a ``record_function`` range named
+    ``label``.  With ``replay``, routings recorded so on another pass, each
+    call takes that pass's expert choices for its layer instead of its own
+    top k (its gates still come from its own router), so that two paths
+    are compared at the same routing and a near-tie that flips an expert
+    choice does not move their difference."""
+    from repro_torch.models import moe
+
+    forward = moe.moe_forward
+
+    def wrapped(params, x, cfg):
+        key = params["router"].data_ptr()
+        if routings is not None:
+            with torch.no_grad():
+                routings[key] = moe.route(
+                    params, x.detach().reshape(-1, x.shape[-1]), cfg)
+        idx = None if replay is None else replay[key].idx
+        if label is None:
+            return forward(params, x, cfg, idx)
+        with torch.profiler.record_function(label):
+            return forward(params, x, cfg, idx)
+
+    moe.moe_forward = wrapped
+    try:
+        yield
+    finally:
+        moe.moe_forward = forward
+
+
+def routing_flips(a: dict, b: dict, experts: int) -> list:
+    """Per MoE layer: how many (token, k) expert choices of routing ``a``
+    routing ``b`` did not make."""
+    out = []
+    for ra, rb in zip(a.values(), b.values(), strict=True):
+        ma = torch.zeros(ra.idx.shape[0], experts, device=ra.idx.device)
+        ma.scatter_(1, ra.idx, 1.0)
+        mb = torch.zeros_like(ma).scatter_(1, rb.idx, 1.0)
+        out.append(int((ma > mb).sum()))
+    return out
 
 
 def serving_path(cfg, params, fa_kernel, ssd_kernel) -> dict:
@@ -2254,23 +2412,12 @@ def serving_path(cfg, params, fa_kernel, ssd_kernel) -> dict:
     done = engine.generate(reqs)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"flash_attention": fa_kernel.launch_count(),
-                "ssd_chunked": ssd_kernel.launch_count()}
-    by_variant = {f"{name} {v}": kernel.launch_count(v)
-                  for name, kernel in (("flash_attention", fa_kernel),
-                                       ("ssd_chunked", ssd_kernel))
-                  for v in kernel.VARIANTS}
-    log(f"main path launches ({waves} waves): {launches}, by variant "
-        f"{by_variant}; first generate (kernels already built) "
-        f"{first_s:.2f} s")
-    for name, n in launches.items():
-        if n != cfg.num_layers * waves:
-            raise AssertionError(f"{name}: {n} launches, expected "
-                                 f"{cfg.num_layers} per wave x {waves}")
-        # bf16 at hymba's widths: every launch is the tensor-core variant
-        if by_variant[f"{name} mma"] != n:
-            raise AssertionError(f"{name}: {by_variant} launches, expected "
-                                 f"all {n} of the mma variant")
+    # bf16 at these widths: every launch is the tensor-core variant
+    launches = counted_launches(
+        fa_kernel, ssd_kernel, lm_kernel_launches(
+            cfg, cfg.num_layers * waves), "mma",
+        f"main path ({waves} waves)")
+    log(f"  first generate (kernels already built) {first_s:.2f} s")
     for r in done:
         if r.out.shape != (LM_NEW,) or not (
                 (r.out >= 0) & (r.out < cfg.vocab_size)).all():
@@ -2326,35 +2473,72 @@ def serving_path(cfg, params, fa_kernel, ssd_kernel) -> dict:
         f"over {len(steps)} steps (min {min(steps):.3f}, max "
         f"{max(steps):.3f}; {LM_BATCH / decode_ms * 1e3:.1f} tokens/s)")
 
+    if cfg.is_moe:
+        routings = {}
+        with moe_calls(routings):
+            engine._prefill(toks)
+        drops = [float((~r.keep).float().mean()) for r in routings.values()]
+        r = next(iter(routings.values()))
+        log(f"  MoE dispatch at prefill ({LM_BATCH * LM_PROMPT} tokens, "
+            f"top {cfg.moe_topk} of {cfg.moe_experts}, capacity factor "
+            f"{cfg.moe_capacity_factor}): {r.cap} slots per expert; dropped "
+            f"fraction of assignments per layer "
+            f"{[round(d, 5) for d in drops]}, mean "
+            f"{statistics.mean(drops):.5f}, max {max(drops):.5f}")
+        del routings, r
+
     phase("serving profile")
-    profile_summary("prefill (one wave)", lambda: engine._prefill(toks),
-                    prefill_ms)
-    profile_summary("decode step", lambda: engine._decode(cur, caches),
-                    decode_ms)
+    share = "moe_forward" if cfg.is_moe else None
+    with moe_calls(label=share):
+        profile_summary("prefill (one wave)", lambda: engine._prefill(toks),
+                        prefill_ms, share)
+        profile_summary("decode step", lambda: engine._decode(cur, caches),
+                        decode_ms, share)
     return launches
 
 
-def cross_path(cfg, params) -> None:
-    """Kernel path vs plain path on the same weights in float32."""
+def first_layers(tree: dict, n: int) -> dict:
+    """The first ``n`` layers of a tree stacked over layers (views)."""
+    return {k: (first_layers(v, n) if isinstance(v, dict) else v[:n])
+            for k, v in tree.items()}
+
+
+def cross_path(cfg, params, layers: int | None = None) -> None:
+    """Kernel path vs plain path on the same weights in float32 (the first
+    ``layers`` layers when given), one wave; for an MoE model the plain
+    path takes the kernel path's expert choices (``moe_calls``), and the
+    expert choices that its own routing would make otherwise are counted
+    per layer."""
     from repro_torch.models import transformer
     from repro_torch.serving import Request
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=layers or cfg.num_layers)
 
     def to32(tree):
         return ({k: to32(v) for k, v in tree.items()}
                 if isinstance(tree, dict) else tree.float())
 
+    if layers is not None:
+        params = {**params, "layers": first_layers(params["layers"], layers)}
     p32 = to32(params)
     reqs = lm_requests(cfg, Request)[:LM_BATCH]
     toks = torch.as_tensor(np.stack([r.prompt for r in reqs]),
                            dtype=torch.int64, device="cuda")
-    out = {}
+    out, routings = {}, {}
     for use_kernel in (True, False):
-        logits, _ = transformer.prefill(p32, {"tokens": toks}, cfg32,
-                                        LM_MAX_LEN, use_kernel=use_kernel)
+        routings[use_kernel] = {}
+        with moe_calls(routings[use_kernel] if cfg.is_moe else None,
+                       replay=None if use_kernel else routings[True]):
+            logits, _ = transformer.prefill(p32, {"tokens": toks}, cfg32,
+                                            LM_MAX_LEN, use_kernel=use_kernel)
         out[use_kernel] = logits[:, -1, :cfg.vocab_size]
         torch.cuda.synchronize()
+    if cfg.is_moe:
+        log(f"  routing, kernel path vs plain path: expert choices that "
+            f"differ per layer {routing_flips(routings[True], routings[False], cfg.moe_experts)} "
+            f"of {LM_BATCH * LM_PROMPT * cfg.moe_topk} (the plain path "
+            f"takes the kernel path's)")
     err = float((out[True] - out[False]).abs().max())
     scale = float(out[False].abs().max())
     tok_k = torch.argmax(out[True], dim=-1)
@@ -2465,18 +2649,12 @@ def training_path(cfg, fa_kernel, ssd_kernel, workdir: Path) -> dict:
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        launches = {"flash_attention": fa_kernel.launch_count(),
-                    "ssd_chunked": ssd_kernel.launch_count()}
-        mma = {name: k.launch_count("mma") for name, k in
-               (("flash_attention", fa_kernel), ("ssd_chunked", ssd_kernel))}
-        log(f"main path launches ({TRAIN_STEPS} steps): {launches}, of the "
-            f"mma variant {mma}; Trainer.run {run_s:.1f} s (init and the "
-            f"checkpoint included)")
-        for name, n in launches.items():
-            if n != per_step * TRAIN_STEPS or mma[name] != n:
-                raise AssertionError(
-                    f"{name}: {n} launches ({mma[name]} mma), expected "
-                    f"{per_step} per step x {TRAIN_STEPS}, all mma")
+        launches = counted_launches(
+            fa_kernel, ssd_kernel,
+            lm_kernel_launches(cfg, per_step * TRAIN_STEPS), "mma",
+            f"main path ({TRAIN_STEPS} steps)")
+        log(f"  Trainer.run {run_s:.1f} s (init and the checkpoint "
+            f"included)")
         if sorted(step_metrics) != list(range(1, TRAIN_STEPS + 1)):
             raise AssertionError(f"steps run: {sorted(step_metrics)}")
         ms = {}
@@ -2610,54 +2788,232 @@ def plain_backward_ms(cfg, B: int) -> dict:
                 *ins, cfg.ssm_chunk), ins, gy), 3)}
 
 
-def training_cross_path(cfg, fa_kernel, ssd_kernel) -> None:
+def loss_and_grads(params, batch, cfg, use_kernel: bool) -> tuple:
+    """``train_loss`` and the gradient of every leaf (zeros for a leaf the
+    loss does not use: an embeddings-input model's token table)."""
+    from repro_torch.models import transformer
+    from repro_torch.train.trainer import value_and_grad
+
+    return value_and_grad(functools.partial(
+        transformer.train_loss, cfg=cfg, use_kernel=use_kernel),
+        params, batch)
+
+
+def lm_batch(cfg, batch: int, step: int = 0) -> dict:
+    """The synthetic LM pipeline's batch on the card (with frame or patch
+    embeddings for an embeddings-input model)."""
+    from repro_torch import tree
+    from repro_torch.train.data import LMDataPipeline
+
+    return tree.tree_map(lambda t: t.cuda(), LMDataPipeline(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch,
+        seed=SEED, embed_dim=cfg.d_model if cfg.input_mode == "embeddings"
+        else 0).batch_at(step))
+
+
+def training_cross_path(cfg, fa_kernel, ssd_kernel,
+                        batch_size: int = TRAIN_CHECK_BATCH) -> None:
     """``train_loss`` and its gradients in float32 through the kernels
     (the simt variants under the autograd Functions) and through the plain
-    path (``chunked_mha``, ``ssd_scan_chunked``), at hymba-1.5b's widths
-    over TRAIN_CHECK_LAYERS layers."""
+    path (``chunked_mha``, ``ssd_scan_chunked``), at ``cfg``'s widths over
+    TRAIN_CHECK_LAYERS layers.  For an MoE model the plain path takes the
+    kernel path's expert choices (``moe_calls``), and the expert choices
+    that its own routing would make otherwise are counted per layer."""
     from repro_torch import tree
     from repro_torch.models import transformer
-    from repro_torch.train.data import LMDataPipeline
 
     cfg32 = dataclasses.replace(cfg, dtype="float32",
                                 num_layers=TRAIN_CHECK_LAYERS)
     params = transformer.init(
         cfg32, torch.Generator(device="cuda").manual_seed(SEED))
-    batch = tree.tree_map(lambda t: t.cuda(), LMDataPipeline(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_CHECK_BATCH, seed=SEED).batch_at(0))
-    out = {}
+    batch = lm_batch(cfg32, batch_size)
+    out, routings = {}, {}
     for use_kernel in (True, False):
         fa_kernel.reset_launch_count()
         ssd_kernel.reset_launch_count()
-        leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
-        loss = transformer.train_loss(tree.unflatten(params, leaves), batch,
-                                      cfg32, use_kernel=use_kernel)
-        out[use_kernel] = (loss.detach(),
-                           torch.autograd.grad(loss, leaves))
+        routings[use_kernel] = {}
+        with moe_calls(routings[use_kernel] if cfg.is_moe else None,
+                       replay=None if use_kernel else routings[True]):
+            out[use_kernel] = loss_and_grads(params, batch, cfg32,
+                                             use_kernel)
         torch.cuda.synchronize()
-        n = {k.__name__.split(".")[-2]: (k.launch_count("simt"),
-                                        k.launch_count())
-             for k in (fa_kernel, ssd_kernel)}
-        want = remat_forwards(cfg32) if use_kernel else 0
-        if any(v != (want, want) for v in n.values()):
-            raise AssertionError(f"use_kernel={use_kernel}: launches "
-                                 f"(simt, all) {n}, expected {want}")
+        counted_launches(
+            fa_kernel, ssd_kernel, lm_kernel_launches(
+                cfg32, remat_forwards(cfg32) if use_kernel else 0), "simt",
+            f"  use_kernel={use_kernel}")
     (lk, gk), (lp, gp) = out[True], out[False]
     loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
     errs = {"/".join(map(str, path)): float(
         (a - b).norm() / b.norm().clamp_min(1e-30))
         for (path, _), a, b in zip(tree.flatten(params), gk, gp)}
     worst = max(errs, key=errs.get)
-    log(f"  float32, {TRAIN_CHECK_LAYERS} layers, {TRAIN_CHECK_BATCH} x "
+    log(f"  float32, {TRAIN_CHECK_LAYERS} layers, {batch_size} x "
         f"{TRAIN_SEQ} tokens: loss {float(lk):.6f} (kernel path) vs "
         f"{float(lp):.6f} (plain), relative {loss_err:.3e}; gradients of "
         f"{len(errs)} leaves, normwise relative error max {errs[worst]:.3e} "
         f"({worst}), median {statistics.median(errs.values()):.3e} "
         f"(tol {CROSS_RTOL:.0e})")
+    del out, gk, gp
+    if cfg.is_moe:
+        log(f"  routing, kernel path vs plain path: expert choices that "
+            f"differ per layer "
+            f"{routing_flips(routings[True], routings[False], cfg.moe_experts)}"
+            f" of {batch_size * TRAIN_SEQ * cfg.moe_topk} (the plain path "
+            f"takes the kernel path's)")
     if not (loss_err <= CROSS_RTOL and errs[worst] <= CROSS_RTOL):
         raise AssertionError("training: kernel path disagrees with the "
                              "plain path")
+
+
+def moe_training_path(cfg, fa_kernel, ssd_kernel, workdir: Path) -> tuple:
+    """``Trainer.run`` on ``cfg`` at full width and MOE_TRAIN_LAYERS layers
+    in bf16; returns the config it trained and the two LM kernels'
+    launches on the path."""
+    import shutil
+    import tempfile
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import transformer
+    from repro_torch.train import Trainer
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import LMDataPipeline
+
+    cfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       microbatches=TRAIN_MICRO, learning_rate=3e-4,
+                       warmup_steps=1, total_steps=MOE_TRAIN_STEPS,
+                       log_every=1, checkpoint_every=MOE_TRAIN_STEPS,
+                       keep_checkpoints=1, seed=SEED)
+    pipe = LMDataPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=SEED)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    per_step = TRAIN_MICRO * remat_forwards(cfg)
+    log(f"{cfg.name} at {cfg.num_layers} layers: "
+        f"{cfg.param_count() / 1e9:.3f} B parameters "
+        f"({cfg.active_param_count() / 1e9:.3f} B active a token), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} tokens a step in "
+        f"{TRAIN_MICRO} microbatches; remat per layer and in groups of "
+        f"{cfg.remat_group}: attention launches {per_step} times a step")
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="moe_ckpt_", dir=workdir))
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    try:
+        starts, ends, step_metrics = {}, {}, {}
+        fa_kernel.reset_launch_count()
+        ssd_kernel.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg=cfg, tcfg=tcfg,
+                          pipeline=_TimedPipeline(pipe, starts),
+                          ckpt_dir=str(ckpt_dir), log_fn=_trainer_log([]),
+                          device="cuda",
+                          on_step=_step_recorder(ends, step_metrics))
+        params, opt, _ = trainer.run(steps=MOE_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = counted_launches(
+            fa_kernel, ssd_kernel,
+            lm_kernel_launches(cfg, per_step * MOE_TRAIN_STEPS), "mma",
+            f"main path ({MOE_TRAIN_STEPS} steps)")
+        log(f"  Trainer.run {run_s:.1f} s (init and the step-"
+            f"{MOE_TRAIN_STEPS} checkpoint included; saved in "
+            f"{[round(x, 2) for _, _, x in trainer.saves]} s)")
+        if sorted(step_metrics) != list(range(1, MOE_TRAIN_STEPS + 1)):
+            raise AssertionError(f"steps run: {sorted(step_metrics)}")
+        ms = {}
+        for n, m in sorted(step_metrics.items()):
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            ms[n] = starts[n].elapsed_time(ends[n])
+            log(f"  step {n}: {ms[n]:.1f} ms (CUDA events), "
+                f"{tokens / ms[n] * 1e3:.0f} tokens/s, loss {loss:.4f} (the "
+                f"router balance term included), grad_norm {gnorm:.4f}")
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"step {n}: loss {loss}, grad_norm "
+                                     f"{gnorm}")
+        later = [ms[n] for n in range(2, MOE_TRAIN_STEPS + 1)]
+        step_ms = statistics.median(later)
+        log(f"  steps 2..{MOE_TRAIN_STEPS}: median {step_ms:.1f} ms, "
+            f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
+            f"{peak / 1e9:.2f} GB of {total_mem / 1e9:.2f} GB")
+        path = ckpt.latest_checkpoint(str(ckpt_dir))
+        log(f"  checkpoint {Path(path).name}: "
+            f"{os.path.getsize(path) / 1e9:.3f} GB")
+        del opt
+        torch.cuda.empty_cache()
+
+        # the trained routers' gradient on one microbatch: nonzero in
+        # every layer (through the gates, and the aux term in layer 0)
+        router = params["layers"]["moe"]["router"].detach().requires_grad_()
+        layers = dict(params["layers"], moe=dict(params["layers"]["moe"],
+                                                 router=router))
+        loss = transformer.train_loss(
+            dict(params, layers=layers),
+            lm_batch(cfg, TRAIN_BATCH // TRAIN_MICRO, MOE_TRAIN_STEPS), cfg,
+            use_kernel=True)
+        (g,) = torch.autograd.grad(loss, router)
+        norms = [float(x) for x in g.float().flatten(1).norm(dim=1)]
+        log(f"  router gradient norm per layer (one microbatch after step "
+            f"{MOE_TRAIN_STEPS}): min {min(norms):.3e}, max {max(norms):.3e}")
+        if not (bool(torch.isfinite(g).all()) and min(norms) > 0):
+            raise AssertionError("the router's gradient is zero or not "
+                                 "finite")
+        del params, layers, router, g, loss
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return cfg, launches
+
+
+def zoo_path(name: str, fa_kernel, ssd_kernel) -> tuple:
+    """One architecture of the zoo at full width and ZOO_LAYERS layers: the
+    float32 training cross path, then (a token-input decoder) one serving
+    wave in bf16.  Returns the config and the wave's launches (None
+    without a wave)."""
+    from repro_torch.config import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving import Request, ServeEngine
+
+    full = get_config(name)
+    cfg = dataclasses.replace(full, num_layers=ZOO_LAYERS)
+    log(f"{name}: {full.num_layers} layers cut to {ZOO_LAYERS}, d_model "
+        f"{cfg.d_model}, {cfg.mixer} mixer, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} of {cfg.hd}, "
+        f"{'MoE ' + str(cfg.moe_experts) + ' top ' + str(cfg.moe_topk) if cfg.is_moe else cfg.mlp_type + ' MLP'}, "
+        f"input {cfg.input_mode}; {full.param_count() / 1e9:.3f} B "
+        f"parameters whole, {cfg.param_count() / 1e9:.3f} B here")
+    training_cross_path(cfg, fa_kernel, ssd_kernel, ZOO_BATCH)
+    torch.cuda.empty_cache()
+    if cfg.input_mode != "tokens":
+        log(f"  no serving wave: {name} takes {cfg.input_mode} inputs and "
+            f"the engine prefills from token prompts")
+        return cfg, None
+    params = transformer.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    engine = ServeEngine(cfg, params, batch=ZOO_BATCH,
+                         max_len=LM_PROMPT + ZOO_NEW)
+    reqs = lm_requests(cfg, Request, ZOO_BATCH, ZOO_NEW)
+    fa_kernel.reset_launch_count()
+    ssd_kernel.reset_launch_count()
+    t0 = time.perf_counter()
+    done = engine.generate(reqs)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = counted_launches(fa_kernel, ssd_kernel,
+                                lm_kernel_launches(cfg, cfg.num_layers),
+                                "mma", f"  bf16 serving wave")
+    toks = torch.as_tensor(np.stack([r.prompt for r in done]),
+                           dtype=torch.int64, device="cuda")
+    logits, _ = engine._prefill(toks)
+    finite = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+    log(f"  {ZOO_BATCH} x {LM_PROMPT} prompts, {ZOO_NEW} new tokens each in "
+        f"{gen_s:.2f} s (host clock, first call); prefill logits finite: "
+        f"{finite}; first request's tokens {done[0].out.tolist()}")
+    if not finite or any(r.out.shape != (ZOO_NEW,) or not (
+            (r.out >= 0) & (r.out < cfg.vocab_size)).all() for r in done):
+        raise AssertionError(f"{name}: bad serving output")
+    del engine, params, logits
+    torch.cuda.empty_cache()
+    return cfg, launches
 
 
 def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
@@ -2675,32 +3031,42 @@ def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
 
 
 def _fa_at(B, cfg, fa_kernel, fa_ref, g) -> dict:
-    """Per-launch numbers of flash attention at batch ``B`` of the LM
-    paths' shape: q (B, 25, 2048, 64), k/v (B, 5, 2048, 64), window."""
+    """Per-launch numbers of flash attention at batch ``B`` of an LM path's
+    prefill shape: q (B, Hq, 2048, D), k/v (B, Hkv, 2048, D), the model's
+    mask.  The library call is ``scaled_dot_product_attention`` with the
+    causal flag, or with the band as a mask where the window cuts it."""
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
+    causal = cfg.causal and not cfg.is_encoder
     case = (B, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT, LM_PROMPT,
-            cfg.hd, True, cfg.window)
+            cfg.hd, causal, cfg.window)
     q, k, v = fa_inputs(case, bf16, g)
     _, Hq, Hkv, L, _, D, _, W = case
     which = fa_kernel.variant(bf16, D)
     t = in_turns({
-        which: lambda: fa_kernel.flash_attention(q, k, v, causal=True,
+        which: lambda: fa_kernel.flash_attention(q, k, v, causal=causal,
                                                  window=W),
-        "simt": lambda: fa_kernel._run("simt", q, k, v, causal=True,
+        "simt": lambda: fa_kernel._run("simt", q, k, v, causal=causal,
                                        window=W)},
         {which: 20, "simt": 5})
     rows_ = torch.arange(L, device="cuda")[:, None]
     cols = torch.arange(L, device="cuda")[None, :]
-    band = (rows_ >= cols) & (rows_ - cols < W)
+    band = torch.ones(L, L, dtype=torch.bool, device="cuda")
+    if causal:
+        band &= rows_ >= cols
+    if W is not None:
+        band &= rows_ - cols < W
+    mask = band if W is not None and W < L else None
     out = {"case": case, "variant": which,
            "ms": t[which][0], "profiler_ms": t[which][1],
            "prev_design_ms": t["simt"][0], "prev_profiler_ms": t["simt"][1],
            "plain_ms": cuda_time_ms(lambda: fa_ref.mha_ref(
-               q, k, v, causal=True, window=W), 3),
-           "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, attn_mask=band, enable_gqa=True), 5)}
+               q, k, v, causal=causal, window=W), 3),
+           "library_ms": cuda_time_ms(
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                   enable_gqa=True), 5)}
     out["flops"] = 4 * D * int(band.sum()) * B * Hq   # QK^T, PV in the band
     out["bytes"] = 2 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D)
     out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["flops"], bf16)
@@ -2708,9 +3074,9 @@ def _fa_at(B, cfg, fa_kernel, fa_ref, g) -> dict:
 
 
 def _ssd_at(B, cfg, ssd_kernel, ssd_ref, g, stages: bool) -> dict:
-    """Per-call numbers of the chunked SSD at batch ``B`` of the LM paths'
-    shape: l (B 50, 2048) f32, dtx (B 50, 2048, 64), B/C (B 50, 2048, 16);
-    with ``stages``, each stage of the mma kernel alone."""
+    """Per-call numbers of the chunked SSD at batch ``B`` of an LM path's
+    prefill shape: l (B H, 2048) f32, dtx (B H, 2048, P), B/C (B H, 2048,
+    S); with ``stages``, each stage of the mma kernel alone."""
     bf16 = torch.bfloat16
     case = (B * cfg.ssm_heads, LM_PROMPT, cfg.ssm_head_dim, cfg.ssm_state,
             cfg.ssm_chunk)
@@ -2752,36 +3118,40 @@ def _ssd_at(B, cfg, ssd_kernel, ssd_ref, g, stages: bool) -> dict:
     return out
 
 
-def lm_kernel_timing(cfg, paths, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
+def lm_kernel_timing(paths, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
                      g, errs) -> list:
     """Report rows of the two LM kernels: on each LM path (``paths``:
-    ``{name: (batch per launch, {kernel: launches})}``) the tensor-core
-    kernel the path runs, the simt design at the same shape (called by
-    variant: the paths never take it), the plain version, the library call
-    where there is one, and the bound, per launch; each row sums them over
-    the paths' launches.  ``errs``: ``{kernel: {case: max abs error}}``
-    from the bfloat16 checks against the plain version; each path's shape
-    must be among them."""
+    ``{name: (model config, batch per launch, {kernel: launches})}``) that
+    launches the kernel, the tensor-core kernel the path runs, the simt
+    design at the same shape (called by variant: the paths never take it),
+    the plain version, the library call where there is one, and the bound,
+    per launch; each row sums them over the paths' launches.  ``errs``:
+    ``{kernel: {case: max abs error}}`` from the bfloat16 checks against
+    the plain version; each path's shape must be among them."""
     rows = []
     for name, at, src, replaces, unit in (
             ("flash_attention",
-             lambda B, first: _fa_at(B, cfg, fa_kernel, fa_ref, g),
+             lambda cfg, B, first: _fa_at(B, cfg, fa_kernel, fa_ref, g),
              "flash_attention/csrc/flash_attention_mma.cu",
              "src/repro/kernels/flash_attention/kernel.py:92", "launch"),
             ("ssd_chunked",
-             lambda B, first: _ssd_at(B, cfg, ssd_kernel, ssd_ref, g, first),
+             lambda cfg, B, first: _ssd_at(B, cfg, ssd_kernel, ssd_ref, g,
+                                           first),
              "ssd/csrc/ssd_mma.cu", "src/repro/kernels/ssd/kernel.py:73",
              "call")):
         per_path, total = {}, collections.Counter()
-        for i, (path, (B, launches)) in enumerate(paths.items()):
-            r = at(B, i == 0)
-            n = launches[name]
+        ran = [(path, cfg, B, launches[name])
+               for path, (cfg, B, launches) in paths.items()
+               if launches[name]]
+        for i, (path, cfg, B, n) in enumerate(ran):
+            r = at(cfg, B, i == 0)
             if r["case"] not in errs[name]:
                 raise AssertionError(f"{name}: the {path} path's shape "
                                      f"{r['case']} was not checked against "
                                      f"the plain version")
             per_path[path] = {"launches": n, "case": r["case"],
                               "max_abs_err": errs[name][r["case"]],
+                              "bound_by": r["bound_by"],
                               **{k: r[k] * n for k in (
                                   "ms", "plain_ms", "bound_ms",
                                   "prev_design_ms", "profiler_ms")}}
@@ -2818,7 +3188,8 @@ def lm_kernel_timing(cfg, paths, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
                                for p in per_path.values()),
             "ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": r["bound_by"],
+            "bound_by": max(per_path.values(),
+                            key=lambda p: p["bound_ms"])["bound_by"],
             "library_ms": total["library_ms"] if "library_ms" in total
             else None, "variant": r["variant"],
             "prev_design_ms": total["prev_design_ms"],
@@ -2945,12 +3316,51 @@ def main() -> int:
     training_cross_path(cfg, fa_kernel, ssd_kernel)
     torch.cuda.empty_cache()
     log(f"training phases: {time.perf_counter() - t0:.1f} s")
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    lm_paths = {"serving": (cfg, LM_BATCH, launches),
+                "training": (cfg, micro, train_launches)}
+
+    t0 = time.perf_counter()
+    phase(f"serving path: {MOE_ARCH}, bfloat16, full width and depth")
+    mcfg = get_config(MOE_ARCH)
+    params = transformer.init(
+        mcfg, torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    log(f"{mcfg.name}: {mcfg.num_layers} layers, d_model {mcfg.d_model}, "
+        f"{mcfg.moe_experts} experts top {mcfg.moe_topk} of d_ff "
+        f"{mcfg.d_ff}, {n_params / 1e9:.3f} B parameters "
+        f"({mcfg.param_count() / 1e9:.3f} B by the config's count, "
+        f"{mcfg.active_param_count() / 1e9:.3f} B active a token; "
+        f"{n_params * 2 / 1e9:.2f} GB in bf16), random weights (seed {SEED})")
+    lm_paths["granite serving"] = (
+        mcfg, LM_BATCH, serving_path(mcfg, params, fa_kernel, ssd_kernel))
+    torch.cuda.empty_cache()
+    phase(f"{MOE_ARCH}: kernel path vs plain path, float32, "
+          f"{TRAIN_CHECK_LAYERS} layers")
+    cross_path(mcfg, params, TRAIN_CHECK_LAYERS)
+    del params
+    torch.cuda.empty_cache()
+    phase(f"training path: {MOE_ARCH}, bfloat16, full width, "
+          f"{MOE_TRAIN_LAYERS} layers")
+    mcfg16, moe_train_launches = moe_training_path(
+        mcfg, fa_kernel, ssd_kernel, ROOT / "build")
+    lm_paths["granite training"] = (mcfg16, micro, moe_train_launches)
+    phase(f"{MOE_ARCH} training: kernel path vs plain path, float32")
+    training_cross_path(mcfg, fa_kernel, ssd_kernel)
+    torch.cuda.empty_cache()
+    log(f"{MOE_ARCH} phases: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for name in ZOO:
+        phase(f"the zoo: {name}, full width, {ZOO_LAYERS} layers")
+        zcfg, zoo_launches = zoo_path(name, fa_kernel, ssd_kernel)
+        if zoo_launches is not None:
+            lm_paths[f"{name} serving"] = (zcfg, ZOO_BATCH, zoo_launches)
+    log(f"zoo phases: {time.perf_counter() - t0:.1f} s")
 
     phase("LM kernel timing at the serving and training paths' shapes")
-    kernels += lm_kernel_timing(
-        cfg, {"serving": (LM_BATCH, launches),
-              "training": (TRAIN_BATCH // TRAIN_MICRO, train_launches)},
-        fa_kernel, fa_ref, ssd_kernel, ssd_ref, g, errs)
+    kernels += lm_kernel_timing(lm_paths, fa_kernel, fa_ref, ssd_kernel,
+                                ssd_ref, g, errs)
 
     phase("report")
     log(f"total {time.perf_counter() - t_start:.1f} s")

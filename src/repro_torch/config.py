@@ -120,6 +120,16 @@ class ModelConfig:
         per += 2 * D                                       # norms
         return n + L * per
 
+    def active_param_count(self) -> int:
+        """Per-token active parameters (MoE: top-k experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        D, F, L = self.d_model, self.d_ff, self.num_layers
+        mults = 3 if self.mlp_type == "gated" else 2
+        dense_like = self.param_count() - (
+            L * self.moe_experts * mults * D * F)
+        return dense_like + L * self.moe_topk * mults * D * F
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -265,7 +265,7 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (B, Hq, Lq, D), k/v: (B, Hkv, Lk, D), o: (B, Hq, Lq, D), contiguous,
-// one dtype (0 = float32, 1 = bfloat16); D in {8, 16, 32, 64, 128};
+// one dtype (0 = float32, 1 = bfloat16); D in {8, 16, 32, 64, 80, 128};
 // Hq % Hkv == 0; Lq <= Lk; window <= 0 means no window.  Launches on
 // `stream` and returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(int dtype, int D, const void* q,
@@ -286,6 +286,9 @@ extern "C" int flash_attention_launch(int dtype, int D, const void* q,
                               window, scale, s);
     case 64:
       return launch_dtype<64>(dtype, q, k, v, o, B, Hq, Hkv, Lq, Lk, causal,
+                              window, scale, s);
+    case 80:
+      return launch_dtype<80>(dtype, q, k, v, o, B, Hq, Hkv, Lq, Lk, causal,
                               window, scale, s);
     case 128:
       return launch_dtype<128>(dtype, q, k, v, o, B, Hq, Hkv, Lq, Lk, causal,

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::flash_attention (body
-// _attn_kernel) for bfloat16 with D in {16, 32, 64, 128}.  Same function:
+// _attn_kernel) for bfloat16 with D in {16, 32, 64, 80, 128}.  Same function:
 //
 //   o[b, h, i] = softmax_j(q[b, h, i] . k[b, h / rep, j] * scale) v[b, h / rep, j]
 //
@@ -47,11 +47,18 @@
 // of the 4 warps.
 //
 // ptxas on the card (sm_90a, -O3, as chip_smoke.py's build phase prints
-// it): 96 / 107 / 127 / 198 registers at D = 16 / 32 / 64 / 128, no spills
-// (the launch bounds hold D <= 64 to 128 registers: 4 blocks per SM).
+// it): 96 / 107 / 127 / 149 / 198 registers at D = 16 / 32 / 64 / 80 / 128,
+// no spills (the launch bounds hold D <= 64 to 128 registers: 4 blocks per
+// SM).
 // Shared memory is dynamic, (64 + 4 * 64) * (D + 8) * 2 bytes: 15,360
-// (D = 16), 25,600 (32), 46,080 (64), 87,040 (128).  The SASS holds 240
-// HMMA instructions (cuobjdump).
+// (D = 16), 25,600 (32), 46,080 (64), 56,320 (80), 87,040 (128).  The SASS
+// holds 240 HMMA instructions (cuobjdump).
+//
+// D = 80 (hubert-xlarge, h2o-danube-1.8b) is a multiple of 16 but not a
+// power of two: 5 k-slices of Q K^T, 10 n-tiles of O (5 ldmatrix.x4.trans
+// pairs in P V), 10 16-byte chunks per row; the row stride of 88 elements
+// (176 bytes, 11 chunks) still puts the 8 rows of an ldmatrix phase on
+// distinct banks.  It takes the D > 64 launch bounds (2 blocks per SM).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -324,7 +331,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q: (B, Hq, Lq, D), k/v: (B, Hkv, Lk, D), o: (B, Hq, Lq, D), contiguous
-// bfloat16 with 16-byte aligned base pointers; D in {16, 32, 64, 128};
+// bfloat16 with 16-byte aligned base pointers; D in {16, 32, 64, 80, 128};
 // Hq % Hkv == 0; Lq <= Lk; window <= 0 means no window.  Launches on
 // `stream` and returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_mma_launch(int D, const void* q, const void* k,
@@ -342,6 +349,9 @@ extern "C" int flash_attention_mma_launch(int D, const void* q, const void* k,
                         s);
     case 64:
       return launch<64>(q, k, v, o, B, Hq, Hkv, Lq, Lk, causal, window, scale,
+                        s);
+    case 80:
+      return launch<80>(q, k, v, o, B, Hq, Hkv, Lq, Lk, causal, window, scale,
                         s);
     case 128:
       return launch<128>(q, k, v, o, B, Hq, Hkv, Lq, Lk, causal, window,

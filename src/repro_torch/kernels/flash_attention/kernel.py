@@ -37,8 +37,8 @@ SOURCE = _CSRC / "flash_attention.cu"
 SOURCE_MMA = _CSRC / "flash_attention_mma.cu"
 SOURCES = {"mma": SOURCE_MMA, "simt": SOURCE}
 VARIANTS = tuple(SOURCES)
-HEAD_DIMS = (8, 16, 32, 64, 128)
-MMA_HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128)
+MMA_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None        # the "simt" library

@@ -5,7 +5,10 @@
         --max-len 2080
 
 Runs on the CUDA card (``--device cpu`` for the CPU) with random weights
-from a seeded generator; the CUDA kernels are built at first use.
+from a seeded generator; the CUDA kernels are built at first use.  Any
+token-input decoder of ``repro_torch.configs.ARCHS`` (or its ``-smoke``
+config) serves; encoders are refused here, and ``ServeEngine`` refuses an
+embeddings-input backbone.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ from repro_torch.serving.engine import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="hymba-1.5b-smoke")
+    ap.add_argument("--arch", default="hymba-1.5b-smoke",
+                    help="a registered architecture (repro_torch.configs."
+                         "ARCHS) or its -smoke config")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--new-tokens", type=int, default=8)

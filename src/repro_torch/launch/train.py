@@ -20,7 +20,9 @@ from repro_torch.train.trainer import Trainer
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="hymba-1.5b-smoke")
+    ap.add_argument("--arch", default="hymba-1.5b-smoke",
+                    help="a registered architecture (repro_torch.configs."
+                         "ARCHS) or its -smoke config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)

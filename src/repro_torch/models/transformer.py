@@ -1,4 +1,5 @@
-"""The language-model stack: decoder LMs with attn / ssm / hybrid mixers.
+"""The language-model stack: decoder/encoder LMs with attn / ssm / hybrid
+mixers and dense or mixture-of-experts FFNs.
 
 Weights are stacked over layers on a leading axis, as in the reference;
 where the reference scans over that axis (``lax.scan``), the port loops
@@ -8,12 +9,10 @@ with ``torch.utils.checkpoint``: ``remat`` checkpoints each layer and
 
 Public entry points:
   init                        parameter tree
-  train_loss                  tokens -> scalar loss (differentiable)
+  train_loss                  tokens/embeddings -> scalar loss
+                              (differentiable)
   prefill                     full-sequence forward -> logits + caches
   decode_step                 one token with caches -> logits + caches
-
-Not ported yet (ROADMAP.md, queue 1): the MoE layer and
-``input_mode="embeddings"``; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,14 +26,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (
     P, activation, apply_rope, init_params, layer_slice, rms_norm,
     rope_freqs, stack_specs,
 )
-
-_NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP.md, queue 1: the "
-               "language-model stack)")
 
 
 def _mlp_spec(cfg: ModelConfig) -> dict:
@@ -48,13 +45,7 @@ def _mlp_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"the MoE layer {_NOT_PORTED}")
-
-
 def layer_spec(cfg: ModelConfig) -> dict:
-    _no_moe(cfg)
     spec: dict = {"ln1": P((cfg.d_model,), ("embed",), init="ones")}
     if cfg.mixer in ("attn", "hybrid"):
         spec["attn"] = attn_mod.attn_spec(cfg)
@@ -63,7 +54,10 @@ def layer_spec(cfg: ModelConfig) -> dict:
     if cfg.mixer == "hybrid":
         spec["attn_out_norm"] = P((cfg.d_model,), ("embed",), init="ones")
         spec["ssm_out_norm"] = P((cfg.d_model,), ("embed",), init="ones")
-    if cfg.mlp_type != "none" and cfg.d_ff > 0:
+    if cfg.is_moe:
+        spec["ln2"] = P((cfg.d_model,), ("embed",), init="ones")
+        spec["moe"] = moe_mod.moe_spec(cfg)
+    elif cfg.mlp_type != "none" and cfg.d_ff > 0:
         spec["ln2"] = P((cfg.d_model,), ("embed",), init="ones")
         spec["mlp"] = _mlp_spec(cfg)
     return spec
@@ -109,7 +103,7 @@ def _apply_mlp(p, x, cfg):
 
 def _embed_in(params, batch, cfg: ModelConfig):
     if cfg.input_mode == "embeddings":
-        raise NotImplementedError(f"input_mode='embeddings' {_NOT_PORTED}")
+        return batch["embeddings"].to(_dtype(cfg))
     return F.embedding(batch["tokens"], params["embed"])
 
 
@@ -130,7 +124,10 @@ def _mix(p, a, s, cfg):
 
 
 def _ffn(p, x, cfg):
-    if "mlp" in p:
+    if "moe" in p:
+        x = x + moe_mod.moe_forward(p["moe"],
+                                    rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    elif "mlp" in p:
         x = x + _apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     return x
 
@@ -198,16 +195,19 @@ def _stack_forward(params, x, cfg: ModelConfig, positions, *,
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False):
-    """Next-token cross-entropy, in float32.
+def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
+               moe_aux_weight: float = 0.01):
+    """Next-token (decoder) or masked-position (encoder) cross-entropy, in
+    float32, plus ``moe_aux_weight`` times the router balance loss of the
+    first layer for MoE models.
 
-    batch: ``{"tokens": (B, L) int, "labels": (B, L) int}`` and optionally
+    batch: ``{"tokens": (B, L) int}`` (or ``"embeddings"`` (B, L, D) for
+    ``input_mode="embeddings"``), ``"labels": (B, L) int`` and optionally
     ``"loss_mask"`` (B, L).  ``use_kernel`` runs the attention and SSD
     forwards through the CUDA kernels (``attention_trainable``,
     ``ssd_trainable``); their backward passes are autograd through the
     plain versions, as in the reference.
     """
-    _no_moe(cfg)
     x = _embed_in(params, batch, cfg)
     L = x.shape[1]
     positions = torch.arange(L, dtype=torch.float32, device=x.device)
@@ -218,7 +218,14 @@ def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False):
     ll = logp.gather(-1, labels[..., None])[..., 0]
     mask = batch.get("loss_mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if cfg.is_moe:
+        # the first layer's router probed on the embedded input (not the
+        # layer's normed input), as in the reference
+        aux = moe_mod.moe_aux_loss(
+            layer_slice(params["layers"]["moe"], 0), x, cfg)
+        loss = loss + moe_aux_weight * aux
+    return loss
 
 
 class LayerCaches(NamedTuple):
@@ -254,7 +261,8 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, *,
             use_kernel: bool = False):
     """Full-sequence forward that also fills the decode caches.
 
-    batch: ``{"tokens": (B, L) int}``.  Returns the last position's logits
+    batch: ``{"tokens": (B, L) int}`` (``{"embeddings": (B, L, D)}`` for
+    ``input_mode="embeddings"``).  Returns the last position's logits
     (B, 1, V) and the caches stacked over layers.  As in the reference,
     each layer's caches come from re-running its mixers in cache-filling
     mode; ``use_kernel`` selects the CUDA kernels for the full-sequence

@@ -39,6 +39,8 @@ class ServeEngine:
 
     Args:
       cfg, params: the model and its parameter tree (moved to ``device``).
+        Prompts are tokens, so an embeddings-input model (an encoder or a
+        VLM backbone) raises ``ValueError``.
       batch: requests per wave; max_len: cache length (prompt + new tokens).
       greedy: only greedy decoding exists (as in the reference).
       device: ``None`` means ``"cuda"`` and raises without a card; pass
@@ -51,6 +53,11 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, batch: int = 4,
                  max_len: int = 512, greedy: bool = True, *, device=None,
                  use_kernel: bool = True):
+        if cfg.input_mode != "tokens":
+            # the reference's engine prefills from tokens as well
+            raise ValueError(
+                f"{cfg.name} takes input_mode={cfg.input_mode!r}: "
+                f"ServeEngine prefills from token prompts only")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)

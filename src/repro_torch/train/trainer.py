@@ -30,6 +30,18 @@ from . import checkpoint as ckpt
 from .optimizer import AdamWState, adamw_init, adamw_update, cosine_schedule
 
 
+def value_and_grad(loss_fn: Callable, params, batch) -> tuple:
+    """``loss_fn(params, batch)`` and its gradient with respect to every
+    leaf of ``params``, in leaf order.  A leaf the loss does not use (the
+    token table of an embeddings-input model) gets a zero gradient, as
+    under ``jax.grad``."""
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    loss = loss_fn(tree.unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tuple(torch.zeros_like(p) if g is None else g
+                                for p, g in zip(leaves, grads))
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     loss_fn: Optional[Callable] = None):
     """Returns ``step(params, opt, batch) -> (params, opt, metrics)``.
@@ -45,10 +57,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     compute_dtype = {"bfloat16": torch.bfloat16,
                      "float32": torch.float32}[cfg.dtype]
 
-    def grads_of(params, batch):
-        leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
-        loss = loss_fn(tree.unflatten(params, leaves), batch)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+    grads_of = functools.partial(value_and_grad, loss_fn)
 
     def step(params, opt: AdamWState, batch):
         n = tcfg.microbatches

@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card: the LM kernels on the card
-(also under autograd, and a training step through them),
+(also under autograd, and a training step through them; attention at head
+size 80), the MoE layer and an MoE model's gradients,
 the whole-scan ``lqt_scan`` kernel against its plain scan, and the
 nonlinear estimation paths (the iterated Taylor and sigma-point
 smoothers), the estimation serving engines (``TrajectoryEngine``,
@@ -224,6 +225,8 @@ FA_MMA_CASES = [
     (1, 4, 1, 1, 300, 64, None),
     (2, 8, 2, 100, 300, 128, 70),
     (1, 25, 5, 200, 200, 64, 100),
+    (1, 4, 2, 100, 300, 80, None),
+    (2, 8, 2, 64, 200, 80, 70),
 ]
 
 
@@ -238,6 +241,35 @@ def test_flash_attention_mma_matches_plain_on_card(card, case):
     assert fa_kernel.launch_count("mma") == before + 1
     want = tfa.mha_ref(q, k, v, causal=True, window=window)
     assert torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# (B, Hq, Hkv, Lq, Lk, causal, window) at head size 80 (hubert-xlarge,
+# h2o-danube-1.8b): hubert's non-causal MHA, danube's GQA with a window,
+# and Lq < Lk off the 64-row tiles
+FA_D80_CASES = [
+    (2, 4, 4, 130, 130, False, None),
+    (1, 8, 2, 200, 200, True, 96),
+    (1, 4, 2, 70, 300, True, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_D80_CASES)
+def test_flash_attention_head_dim_80_on_card(card, case, dtype):
+    """D = 80 runs the tensor-core kernel in bfloat16 and the float32
+    kernel in float32, each within its tolerance of ``mha_ref``."""
+    B, Hq, Hkv, Lq, Lk, causal, window = case
+    q, k, v = (torch.randn(s, generator=card, device="cuda").to(dtype)
+               for s in ((B, Hq, Lq, 80), (B, Hkv, Lk, 80), (B, Hkv, Lk, 80)))
+    which = fa_kernel.variant(dtype, 80)
+    assert which == ("mma" if dtype == torch.bfloat16 else "simt")
+    before = fa_kernel.launch_count(which)
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.launch_count(which) == before + 1
+    want = tfa.mha_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -533,3 +565,72 @@ def test_batch_sharded_kernel_launches_once_per_shard_on_card(card):
     ref = Estimator(model, options=ParallelOptions(nsub=10, mode="discrete"))
     assert torch.allclose(dist.solve(problem).x, ref.solve(problem).x,
                           rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_moe_forward_bf16_on_card_matches_cpu_float32(card):
+    """granite-moe-3b-a800m-smoke's MoE layer (5 experts, top 2; its
+    capacity factor of 64 drops nothing, so a token's output depends on
+    its own routing alone) at 512 tokens: bfloat16 on the card against
+    float32 on the CPU from the same bfloat16-rounded weights and inputs.
+    bfloat16 router logits may reorder near-tied experts, so the outputs
+    are compared on the tokens whose expert sets agree (at least 95 % of
+    them), to 2e-2 of the output's magnitude."""
+    from repro_torch.models import moe
+
+    cfg = get_config("granite-moe-3b-a800m-smoke")
+    spec = moe.moe_spec(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = {k: (torch.randn(p.shape, generator=g) / p.shape[-2] ** 0.5)
+              .bfloat16() for k, p in spec.items()}
+    x = torch.randn(4, 128, cfg.d_model, generator=g).bfloat16()
+    cpu32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    want = moe.moe_forward(p32, x.float(), cpu32)
+    gpu = {k: v.cuda() for k, v in params.items()}
+    got = moe.moe_forward(gpu, x.cuda(), cfg)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    T, E = 4 * 128, cfg.moe_experts
+    r_cpu = moe.route(p32, x.float().reshape(T, -1), cpu32)
+    r_gpu = moe.route(gpu, x.cuda().reshape(T, -1), cfg)
+    assert r_gpu.cap == r_cpu.cap == moe.capacity(T, cfg)
+    assert bool(r_gpu.keep.all()) and bool(r_cpu.keep.all())
+    sets = [torch.zeros(T, E).scatter_(1, r.idx.cpu(), 1.0)
+            for r in (r_cpu, r_gpu)]
+    same = (sets[0] == sets[1]).all(dim=1)
+    assert float(same.float().mean()) >= 0.95
+    err = (got.float().cpu().reshape(T, -1)[same]
+           - want.reshape(T, -1)[same]).abs().max()
+    assert float(err) <= 2e-2 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_moe_train_loss_gradient_on_card_matches_cpu(card):
+    """granite-moe-3b-a800m-smoke in float32: ``train_loss`` (the router
+    balance term included) and every gradient leaf through the kernels on
+    the card against the plain path on the CPU, normwise within 1e-4;
+    attention launches once per forward of a layer (remat included)."""
+    from repro_torch import tree
+    from repro_torch.train.data import LMDataPipeline
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m-smoke"),
+                              dtype="float32")
+    cpu = transformer.init(cfg, torch.Generator().manual_seed(0))
+    batch = LMDataPipeline(vocab_size=cfg.vocab_size, seq_len=64,
+                           global_batch=4).batch_at(0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = tree.tree_map(lambda t: t.to(device), cpu)
+        leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+        fa_kernel.reset_launch_count()
+        loss = transformer.train_loss(
+            tree.unflatten(params, leaves),
+            tree.tree_map(lambda t: t.to(device), batch), cfg,
+            use_kernel=True)
+        out[device] = (loss.detach(), torch.autograd.grad(loss, leaves))
+        if device == "cuda":
+            assert fa_kernel.launch_count("simt") == 2 * cfg.num_layers
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    for path, a, b in zip(tree.flatten(cpu), gg, gc):
+        assert _normwise_err(a.cpu(), b) <= 1e-4, path[0]

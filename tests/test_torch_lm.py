@@ -310,17 +310,16 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_unported_parts_raise(model):
+    """What neither package serves raises: the engine prefills from token
+    prompts only (an embeddings-input model is refused, where the
+    reference's engine fails at its prefill), and ``chunked_mha`` needs
+    lengths that its chunks divide.  The MoE layer and embeddings inputs
+    are ported: ``tests/test_torch_moe.py`` and ``tests/test_torch_arch.py``
+    hold them against the reference."""
     _, tcfg, _, tparams = model
-    moe = dataclasses.replace(tcfg, moe_experts=4, moe_topk=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tf.init(moe, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tf.train_loss(tparams, {}, moe)
     emb = dataclasses.replace(tcfg, input_mode="embeddings")
-    for fn in (lambda b: t_tf.prefill(tparams, b, emb, 8),
-               lambda b: t_tf.train_loss(tparams, b, emb)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn({"embeddings": torch.zeros(1, 4, 64)})
+    with pytest.raises(ValueError, match="token prompts"):
+        ServeEngine(emb, tparams, device="cpu")
     with pytest.raises(ValueError, match="chunked_mha"):
         t_attn.chunked_mha(torch.zeros(1, 5, 600, 16),
                            torch.zeros(1, 1, 600, 16),

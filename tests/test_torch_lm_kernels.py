@@ -56,6 +56,8 @@ def _np(x):
     (2, 4, 4, 16, 64, 16, True, None, 16, 16),    # decode: Lq < Lk
     (1, 2, 1, 64, 64, 8, False, None, 32, 16),
     (1, 8, 1, 128, 128, 16, True, 32, 32, 32),    # MQA + SWA
+    (1, 4, 2, 64, 64, 80, True, 48, 16, 16),      # danube's head size
+    (2, 4, 4, 32, 32, 80, False, None, 16, 16),   # hubert's: MHA, encoder
 ])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_flash_plain_matches_pallas_interpret(case, dtype):
@@ -294,7 +296,7 @@ def test_bf16_split_reproduces_float32(scale):
 
 def test_dispatch_rules():
     """The wrappers' dispatch: a plain function of dtype and head size."""
-    for D in (16, 32, 64, 128):
+    for D in (16, 32, 64, 80, 128):
         assert fa_kernel.variant(torch.bfloat16, D) == "mma"
         assert fa_kernel.variant(torch.float32, D) == "simt"
     assert fa_kernel.variant(torch.bfloat16, 8) == "simt"
