@@ -51,3 +51,8 @@ _MODULES = {
 for _name, _mod in _MODULES.items():
     register_config(_name, _mod.config)
     register_config(_name + "-smoke", _mod.smoke_config)
+
+
+def arch_module(name: str):
+    """The module of architecture ``name`` (a name of ``ARCHS``)."""
+    return _MODULES[name]

@@ -34,3 +34,7 @@ class WienerVelocityConfig:
             R=self.r * torch.eye(2, **kw),
             m0=torch.tensor([5.0, 5.0, 0.0, 0.0], **kw),
             P0=self.p0 * torch.eye(4, **kw))
+
+
+def config() -> WienerVelocityConfig:
+    return WienerVelocityConfig()

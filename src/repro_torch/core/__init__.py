@@ -10,7 +10,10 @@ A :class:`NonlinearSDE` model is solved by iterated linearisation
 (:class:`IteratedOptions` wraps the inner method's options;
 ``method="sigma_point"`` with :class:`SigmaPointOptions` is the
 posterior-linearisation smoother).  Records of unequal lengths are solved
-by pad-and-bucket (:meth:`Problem.ragged`).  ``Estimator(..., mesh=...)``
+by pad-and-bucket (:meth:`Problem.ragged`).  Each estimator keeps one
+cached solve per problem layout (:class:`ExecutableCache`,
+:func:`cache_stats`); ``est.lower(problem).compile()`` returns it for
+ahead-of-time use.  ``Estimator(..., mesh=...)``
 spreads records over a device mesh's batch axis, and
 ``method="distributed"`` (:class:`DistributedOptions`) the time axis over
 its time axis (:mod:`repro_torch.distributed`).  The old function entry points
@@ -25,7 +28,17 @@ from .combine import (
     lqt_combine,
     value_as_element,
 )
-from .estimator import Estimator, Problem, legacy_options, resolve_device
+from .estimator import (
+    Compiled,
+    Estimator,
+    ExecutableCache,
+    Lowered,
+    Problem,
+    cache_stats,
+    clear_cache,
+    legacy_options,
+    resolve_device,
+)
 from .nonlinear import iterated_map, iterated_solve
 from .options import (
     DistributedOptions,
@@ -88,13 +101,16 @@ from .types import (
 __all__ = [
     "AffineElement",
     "BucketInfo",
+    "Compiled",
     "DistributedOptions",
     "Estimator",
+    "ExecutableCache",
     "GridLQT",
     "IteratedOptions",
     "KernelOptions",
     "LQTElement",
     "LinearSDE",
+    "Lowered",
     "MAPSolution",
     "METHODS",
     "MethodSpec",
@@ -114,6 +130,8 @@ __all__ = [
     "associative_scan",
     "bucket_length",
     "build_grid_lqt",
+    "cache_stats",
+    "clear_cache",
     "distributed_scan",
     "elem_min_initial",
     "get_method",

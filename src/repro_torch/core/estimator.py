@@ -13,7 +13,11 @@
   caller asks for ``device="cpu"``.  A ``mesh``
   (:class:`repro_torch.distributed.MeshSpec`) spreads stacked records
   over its batch axis and, with ``method="distributed"``, the time axis
-  over its time axis.
+  over its time axis.  The estimator keeps ONE :class:`Compiled` solve per
+  (problem layout, options, device, mesh) key in an LRU
+  :class:`ExecutableCache` (the module-level one unless it is given its
+  own; inspect it with :func:`cache_stats`).  ``.solve`` runs it;
+  ``.lower(problem).compile()`` returns it for ahead-of-time use.
 * :class:`~repro_torch.core.types.Solution` is the result, with the
   Onsager-Machlup cost of the estimate (and, for nonlinear models, the cost
   and step-norm traces of the iterations; for ragged problems, the
@@ -31,9 +35,12 @@ one), so each scan level is one batched operation -- one kernel launch for
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -41,12 +48,19 @@ from repro_torch import obs
 from repro_torch.distributed.sharding import (
     as_mesh,
     canonical_device,
+    mesh_fingerprint,
     resolve_time_mesh,
     shard_over_batch,
 )
+from repro_torch.obs.metrics import replaying
 
 from .nonlinear import iterated_solve
-from .options import DistributedOptions, IteratedOptions, SolverOptions
+from .options import (
+    DistributedOptions,
+    IteratedOptions,
+    KernelOptions,
+    SolverOptions,
+)
 from .padding import (
     _tensor,
     bucket_length,
@@ -60,6 +74,167 @@ from .types import BucketInfo, PaddingReport, Solution
 
 Model = Union[LinearSDE, NonlinearSDE]
 Records = Sequence[Tuple[Any, Any]]
+
+
+class ExecutableCache:
+    """LRU cache of :class:`Compiled` solves keyed by (model, mesh, method,
+    options, problem layout, device).
+
+    Models hold tensors (unhashable), so the key uses ``id(model)``; the
+    entry keeps a strong reference to the model (and mesh) so the id cannot
+    be recycled while it is cached.  ``maxsize`` bounds the entries kept:
+    callers that build a fresh model per request never hit and would
+    otherwise grow the cache without bound -- reuse one model object to
+    reuse its entries.
+
+    Hit/miss/eviction counts are plain ints (always kept) and mirrored
+    into the :mod:`repro_torch.obs` counters ``cache.hits`` /
+    ``cache.misses`` / ``cache.evictions`` while obs is enabled (summed
+    over every cache: the module default and any private
+    ``Estimator(cache=...)`` one).  Thread-safe: the engines solve from
+    their own threads.
+    """
+
+    def __init__(self, maxsize: int = 128) -> None:
+        self._entries: "collections.OrderedDict[tuple, tuple]" = (
+            collections.OrderedDict())
+        self._lock = threading.RLock()
+        self.maxsize = maxsize
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get_entry(self, model: Model, mesh, key_tail: tuple, build):
+        """Fetch-or-build; returns ``(fn, fresh)``, ``fresh`` marking a miss
+        (``fn`` was just built and has not run yet)."""
+        key = (id(model), None if mesh is None else id(mesh)) + key_tail
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self.hits += 1
+                self._entries.move_to_end(key)
+                obs.inc("cache.hits")
+                return entry[0], False
+            self.misses += 1
+            obs.inc("cache.misses")
+            fn = build()
+            self._entries[key] = (fn, model, mesh)
+            if len(self._entries) > self.maxsize:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+                obs.inc("cache.evictions")
+            return fn, True
+
+    def get(self, model: Model, mesh, key_tail: tuple, build):
+        return self.get_entry(model, mesh, key_tail, build)[0]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self.hits = 0
+            self.misses = 0
+            self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+_CACHE = ExecutableCache()
+
+
+def cache_stats() -> Dict[str, int]:
+    """The default cache's counters: one miss per new (layout, method,
+    options, device, mesh) entry, a hit for every reuse, an eviction for
+    every LRU drop.  The obs registry exports the same counts as
+    ``cache.*`` (summed over every cache), beside the
+    ``cache.compile_seconds`` histogram of fresh entries' first solves."""
+    return {"size": len(_CACHE), "hits": _CACHE.hits,
+            "misses": _CACHE.misses, "evictions": _CACHE.evictions}
+
+
+def clear_cache() -> None:
+    _CACHE.clear()
+
+
+def _signature(args) -> tuple:
+    return tuple((tuple(a.shape), a.dtype) for a in args)
+
+
+class Compiled:
+    """One cached solve: the counterpart of ``jax.stages.Compiled``.
+
+    It fixes the problem layout (``kind``, which optional arguments it
+    takes, their shapes and dtypes), the resolved method and options, the
+    device and dtype the solve runs in, the resolved mesh and whether the
+    records are split over its batch axis.  Call it with the problem's
+    arrays in the reference's order ``(ts, y[, mask][, x_init][, S0,
+    v0])``; it returns the :class:`Solution` that ``Estimator.solve``
+    returns for them.  An argument whose shape or dtype differs from the
+    entry's signature raises ``ValueError``.
+
+    Its first run is the compile phase: the work done once per process and
+    entry falls in it -- on the card, loading the kernel library its
+    method launches (built if needed), creating the cuBLAS and cuSOLVER
+    handles, growing the allocator.  Counters of
+    :func:`repro_torch.obs.metrics.inc_per_entry` count on that run only.
+    """
+
+    def __init__(self, run: Callable, signature: tuple,
+                 library: Optional[Callable] = None) -> None:
+        self._run = run
+        self.signature = signature
+        self._library = library
+        self._ran = False
+        self._lock = threading.Lock()
+
+    def load(self) -> None:
+        """Build (if needed) and load the kernel library the solve
+        launches, if it launches one."""
+        if self._library is not None:
+            self._library()
+
+    def __call__(self, *args) -> Solution:
+        args = tuple(_tensor(a) for a in args)
+        sig = _signature(args)
+        if sig != self.signature:
+            raise ValueError(
+                f"arguments {sig} do not match the compiled signature "
+                f"{self.signature}")
+        with self._lock:
+            first, self._ran = not self._ran, True
+        if first or not obs.enabled():
+            return self._run(*args)
+        with replaying():
+            return self._run(*args)
+
+
+class Lowered:
+    """A problem layout's solve ahead of its first run (the counterpart of
+    ``jax.stages.Lowered``): :meth:`compile` returns the cached
+    :class:`Compiled` entry."""
+
+    def __init__(self, compiled: Compiled) -> None:
+        self._compiled = compiled
+
+    def compile(self) -> Compiled:
+        """Load the kernel libraries the solve launches; return the
+        entry."""
+        self._compiled.load()
+        return self._compiled
+
+
+def _scan_library():
+    from repro_torch.kernels.lqt_combine import scan
+
+    return scan.build()
+
+
+def _device_key(device: torch.device) -> torch.device:
+    """``device`` with a bare ``cuda`` resolved to the current card, which
+    a solve on it runs on."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _check_ny(model: Model, y, where: str = "") -> None:
@@ -346,11 +521,16 @@ class Estimator:
         non-distributed methods.
       diagnostics: compute ``Solution.cost`` (and the iteration traces of
         nonlinear solves; default); ``False`` skips them.
+      cache: a private :class:`ExecutableCache` (default: the module-level
+        cache every estimator shares).  Its key holds the device and the
+        fingerprint of the resolved mesh, so an entry built for one device
+        or mesh is never run on another.
     """
 
     def __init__(self, model: Model, *, method: str = "parallel_rts",
                  options=None, device=None, mesh=None,
-                 batch_axis: str = "data", diagnostics: bool = True):
+                 batch_axis: str = "data", diagnostics: bool = True,
+                 cache: Optional[ExecutableCache] = None):
         self._spec = get_method(method)
         self.model = model
         self.method = method
@@ -374,6 +554,7 @@ class Estimator:
             device = home
         self.device = resolve_device(device)
         self.diagnostics = diagnostics
+        self._cache = _CACHE if cache is None else cache
         self._models = {}
         self._model = self._model_on(self.device)
 
@@ -521,57 +702,109 @@ class Estimator:
 
         While :mod:`repro_torch.obs` is enabled (and ``diagnostics`` is on
         -- the hot-serving opt-out also silences instrumentation) the
-        solve is measured: phase spans ``estimator.solve.{prepare,execute,
-        host_transfer}`` (``execute`` labelled for ``torch.profiler`` and
-        ended by a device synchronise on the card, so it times real work)
-        and the ``estimator.*``, ``nonlinear.*`` and ``linearize.*``
-        metrics.  The port has no executable cache, so there is no
-        ``compile`` phase and no ``cache.*`` metric.  Outputs are
-        bit-identical either way.
+        solve is measured: phase spans ``estimator.solve.{prepare,compile,
+        execute,host_transfer}`` (``compile`` for a new cache entry,
+        ``execute`` for a cached one; both labelled for ``torch.profiler``
+        and ended by a device synchronise on the card, so they time real
+        work), the ``cache.compile_seconds`` histogram of new entries and
+        the ``estimator.*``, ``nonlinear.*`` and ``linearize.*`` metrics.
+        Outputs are bit-identical either way.
         """
-        if problem.model is not self.model:
-            raise ValueError(
-                "problem.model is not this Estimator's model object; build "
-                "the Problem with the same model instance")
+        self._check_model(problem)
         if problem.kind == "ragged":
             return self._solve_ragged(problem)
-        mesh = self._resolved_mesh()
         if not (self.diagnostics and obs.enabled()):
             # hot path: no obs object touched, nothing synchronised
-            fn, args = self._prepare(problem, mesh)
+            fn, args, _, _ = self._prepare(problem)
             return fn(*args)
         with obs.trace_span("estimator.solve"):
             with obs.trace_span("estimator.solve.prepare"):
-                fn, args = self._prepare(problem, mesh)
-            with obs.trace_span("estimator.solve.execute",
-                                record_function=True):
+                fn, args, fresh, mesh = self._prepare(problem)
+            phase = ("estimator.solve.compile" if fresh
+                     else "estimator.solve.execute")
+            t0 = time.perf_counter()
+            with obs.trace_span(phase, record_function=True):
                 out = fn(*args)
                 self._synchronize(mesh)
+            if fresh:
+                obs.record("cache.compile_seconds", time.perf_counter() - t0)
             with obs.trace_span("estimator.solve.host_transfer"):
                 self._record_solution_metrics(out)
         return out
 
-    def _prepare(self, problem: Problem, mesh):
-        """``(fn, args)``: the problem's tensors on the estimator's device
-        and dtype, in the solver layout -- the record axis right after the
-        time axis (a single record is a batch of one) -- and the function
-        that solves them on the resolved ``mesh``: :meth:`_execute`, split
-        over the mesh's batch axis for a stacked problem on a mesh that
-        has one."""
+    def lower(self, problem: Problem) -> Lowered:
+        """Ahead-of-time path: the :class:`Lowered` solve of this problem's
+        layout (``.compile()`` it, then call the :class:`Compiled` entry
+        with the problem's arrays).  A ragged problem is one stacked solve
+        per bucket and cannot be lowered as one -- lower the buckets'
+        stacked problems instead."""
+        if problem.kind == "ragged":
+            raise ValueError(
+                "lower() supports single/stacked problems; a ragged solve "
+                "composes one executable per bucket")
+        self._check_model(problem)
+        with obs.trace_span("estimator.lower"):
+            fn, _, _, _ = self._prepare(problem)
+            return Lowered(fn)
+
+    def _check_model(self, problem: Problem) -> None:
+        if problem.model is not self.model:
+            raise ValueError(
+                "problem.model is not this Estimator's model object; build "
+                "the Problem with the same model instance (solves are "
+                "cached per model object)")
+
+    def _prepare(self, problem: Problem):
+        """``(entry, args, fresh, mesh)``: the cached :class:`Compiled`
+        solve of this problem's layout on the mesh resolved now (built on
+        a miss, ``fresh``), the problem's arrays in the entry's argument
+        order, and that mesh."""
+        mesh = self._resolved_mesh()
         stacked = problem.kind == "stacked"
         shards = self._batch_shard_size(mesh) if stacked else 1
+        if shards > 1 and problem.y.shape[0] % shards:
+            raise ValueError(
+                f"batch {problem.y.shape[0]} not divisible by mesh batch "
+                f"axis size {shards}")
+        args = [problem.ts, problem.y]
+        has = (problem.measurement_mask is not None,
+               problem.x_init is not None, problem.prior is not None)
+        if has[0]:
+            args.append(problem.measurement_mask)
+        if has[1]:
+            args.append(problem.x_init)
+        if has[2]:
+            args.extend(problem.prior)
+        signature = _signature(args)
+        # the resolved mesh's fingerprint: an entry built for one mesh is
+        # never run on another, even when the mesh arrives ambiently
+        key_tail = (self.method, self.options, problem.kind, self.batch_axis,
+                    mesh_fingerprint(mesh), *has, self.diagnostics,
+                    signature, _device_key(self.device))
+
+        def build():
+            run = functools.partial(self._run, problem.kind, has, shards,
+                                    mesh)
+            kernel = self.device.type == "cuda" and isinstance(
+                self._method_options(), KernelOptions)
+            return Compiled(run, signature, _scan_library if kernel else None)
+
+        fn, fresh = self._cache.get_entry(self.model, self.mesh, key_tail,
+                                          build)
+        return fn, args, fresh, mesh
+
+    def _run(self, kind: str, has: tuple, shards: int, mesh, *args):
+        """Solve one entry's arguments: move them to the estimator's device
+        and dtype, lay them out with the record axis right after the time
+        axis (a single record is a batch of one) and run :meth:`_execute`,
+        split over the mesh's batch axis when ``shards > 1``."""
         dtype = self._model.dtype
-
-        def put(a):
-            return None if a is None else a.to(device=self.device,
-                                                dtype=dtype)
-
-        ts, y, mask = put(problem.ts), put(problem.y), put(
-            problem.measurement_mask)
-        x_init = put(problem.x_init)
-        prior = None if problem.prior is None else tuple(
-            put(a) for a in problem.prior)
-        single = problem.kind == "single"
+        it = iter(a.to(device=self.device, dtype=dtype) for a in args)
+        ts, y = next(it), next(it)
+        mask = next(it) if has[0] else None
+        x_init = next(it) if has[1] else None
+        prior = (next(it), next(it)) if has[2] else None
+        single = kind == "single"
         if single:
             ts, y = ts[:, None], y[:, None]
             mask = None if mask is None else mask[:, None]
@@ -586,7 +819,7 @@ class Estimator:
                 x_init = self._stacked_x_init(x_init, B)
         args = (single, ts, y, mask, x_init, prior)
         if shards == 1:
-            return functools.partial(self._execute, mesh=mesh), args
+            return self._execute(*args, mesh=mesh)
         # the record dim of each argument (None: shared by every shard)
         per_xi = x_init is not None and x_init.dim() == 3 and (
             x_init.shape[1] == B)
@@ -594,7 +827,7 @@ class Estimator:
         in_axes = (None, 1, 1, 1, 1 if per_xi else None,
                    0 if per_prior else None)
         return shard_over_batch(self._execute, mesh,
-                                self._batch_spmd_axis(mesh), in_axes), args
+                                self._batch_spmd_axis(mesh), in_axes)(*args)
 
     def _execute(self, single, ts, y, mask, x_init, prior, *,
                  mesh) -> Solution:
@@ -664,7 +897,8 @@ class Estimator:
         """Pad-and-bucket: one stacked solve per bucket of records padded
         to one length, its batch rounded up to a power of two (with
         ``pad_batch``) and then to a multiple of the mesh's batch axis, by
-        recycling the bucket's first record."""
+        recycling the bucket's first record.  Each bucket shape is one
+        cache entry, so a repeated shape is a hit."""
         lengths = problem.lengths
         buckets: Dict[int, List[int]] = {}
         for i, N_i in enumerate(lengths):

@@ -65,6 +65,9 @@ class SolverOptions:
         return cls(**{k: v for k, v in kwargs.items()
                       if k in names and v is not None})
 
+    def replace(self, **changes) -> "SolverOptions":
+        return dataclasses.replace(self, **changes)
+
 
 @dataclasses.dataclass(frozen=True)
 class SequentialOptions(SolverOptions):

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.distributed.sharding import device_scope
+from repro_torch.obs.metrics import inc_per_entry
 
 T = TypeVar("T", bound=Sequence[torch.Tensor])
 
@@ -230,8 +231,10 @@ def sharded_scan(
     With :mod:`repro_torch.obs` enabled, every sharded scan counts
     ``distributed.shards`` (time shards used) and
     ``distributed.carry_bytes`` (bytes of the per-shard carries gathered)
-    and opens the span ``distributed_scan``.  (The reference counts once
-    per traced executable; the port counts every scan it runs.)
+    and opens the span ``distributed_scan``.  Inside an executable cache
+    entry the counters count on the entry's first run only (the reference
+    counts them once per traced executable); outside one, every scan
+    counts.
     """
     length = elems[0].shape[0]
     shards = mesh.shape[axis_name]
@@ -242,8 +245,8 @@ def sharded_scan(
         if obs.enabled():
             carry = sum(x.element_size() * math.prod(x.shape[1:])
                         for x in elems)
-            obs.inc("distributed.shards", shards)
-            obs.inc("distributed.carry_bytes", carry * shards)
+            inc_per_entry("distributed.shards", shards)
+            inc_per_entry("distributed.carry_bytes", carry * shards)
         devices = mesh.axis_devices(axis_name)
         home = elems[0].device
 

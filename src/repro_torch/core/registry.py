@@ -40,6 +40,9 @@ class MethodSpec(NamedTuple):
     solver: Solver
     options_cls: Type[SolverOptions]
 
+    def default_options(self) -> SolverOptions:
+        return self.options_cls()
+
     @property
     def nonlinear(self) -> bool:
         """True for iterated nonlinear methods (options subclass

@@ -32,6 +32,7 @@ from typing import Callable
 import torch
 
 from repro_torch import obs
+from repro_torch.obs.metrics import inc_per_entry
 
 from .base import Linearization, register_linearization, vmap_points
 from .sigma_points import (
@@ -125,11 +126,12 @@ class SLR(Linearization):
                 "SLR needs per-point spread covariances on the grid")
         if obs.enabled():
             # regressions performed by this call (every grid point of
-            # every record); the reference counts once per trace
+            # every record), on a cache entry's first run only; the
+            # reference counts once per traced call site
             points = xb[..., 0].numel()
-            obs.inc("linearize.slr.regressions", points)
-            obs.inc("linearize.slr.sigma_points",
-                    points * self.family.num_points(xb.shape[-1]))
+            inc_per_entry("linearize.slr.regressions", points)
+            inc_per_entry("linearize.slr.sigma_points",
+                          points * self.family.num_points(xb.shape[-1]))
         with obs.trace_span("slr"):
             return _regress(g, xb, tl, self.spread * covs, self.family)
 

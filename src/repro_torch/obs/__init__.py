@@ -3,8 +3,7 @@ export.
 
 Process-local observability the estimator and the serving engines report
 through, with the reference's taxonomy and JSON schema
-(``docs/OBSERVABILITY.md``; the port has no executable cache, so it
-records no ``cache.*`` metrics):
+(``docs/OBSERVABILITY.md``):
 
     import repro_torch.obs as obs
 

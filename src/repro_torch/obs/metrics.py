@@ -34,6 +34,7 @@ be importable (and near-free) in processes that never touch a card.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import math
 import os
 import threading
@@ -258,6 +259,34 @@ def _concretise(v) -> Optional[float]:
 def inc(name: str, n: int = 1) -> None:
     """Increment counter ``name`` (no-op when disabled)."""
     if _ENABLED:
+        REGISTRY.counter(name).inc(n)
+
+
+class _Replay(threading.local):
+    active = False
+
+
+_REPLAY = _Replay()
+
+
+@contextlib.contextmanager
+def replaying():
+    """Mark the calling thread as re-running a cached solve (an executable
+    cache entry after its first run): :func:`inc_per_entry` counts nothing
+    inside."""
+    prev, _REPLAY.active = _REPLAY.active, True
+    try:
+        yield
+    finally:
+        _REPLAY.active = prev
+
+
+def inc_per_entry(name: str, n: int = 1) -> None:
+    """Increment counter ``name`` unless a cached solve is replaying
+    (:func:`replaying`): a cache entry counts on its first run only, as
+    the reference counts these while it traces a new executable.  Code run
+    outside a cache entry counts every call."""
+    if _ENABLED and not _REPLAY.active:
         REGISTRY.counter(name).inc(n)
 
 

@@ -407,9 +407,8 @@ def test_sharded_scan_float32_with_float64_carry():
 
 
 def test_sharded_scan_counts_and_span():
-    """Every sharded scan counts its shards and carry bytes and opens the
-    span (the port counts each scan it runs: no trace cache); a degraded
-    scan counts nothing."""
+    """Every sharded scan run outside a cache entry counts its shards and
+    carry bytes and opens the span; a degraded scan counts nothing."""
     elems = AffineElement(*(torch.as_tensor(a) for a in
                             _random_elems("affine", 20, 2, 3, seed=1)))
     obs.enable()
@@ -471,9 +470,10 @@ def test_distributed_counts_and_span_per_solve(wiener):
             walk(nd.get("children", []))
 
     walk(snap["span_trees"])
-    assert {"estimator.solve.execute", "distributed_scan"} <= names
-    est.solve(p)                     # counted again: every solve counts
-    assert obs.snapshot()["counters"]["distributed.shards"] == 32
+    assert {"estimator.solve.compile", "distributed_scan"} <= names
+    est.solve(p)                     # a cache hit counts nothing more
+    c = obs.snapshot()["counters"]
+    assert c["distributed.shards"] == 16 and c["cache.hits"] == 1
 
 
 @pytest.mark.parametrize("P", [2, 4])

@@ -634,3 +634,110 @@ def test_moe_train_loss_gradient_on_card_matches_cpu(card):
     assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
     for path, a, b in zip(tree.flatten(cpu), gg, gc):
         assert _normwise_err(a.cpu(), b) <= 1e-4, path[0]
+
+
+@pytest.mark.gpu
+def test_compiled_entry_matches_solve_on_card(card):
+    """``Estimator.lower(problem).compile()`` on cuda:0: the ``Compiled``
+    entry's solution is ``solve``'s bit for bit, and one scan launch per
+    call; lowering after a solve is a hit of the private cache."""
+    from repro_torch.core import ExecutableCache
+
+    model, recs = _wiener_records([400], torch.Generator().manual_seed(5))
+    ts, y = recs[0]
+    problem = Problem.single(model, ts, y)
+    cache = ExecutableCache()
+    est = Estimator(model, method="parallel_kernel", cache=cache,
+                    options=KernelOptions(nsub=10, mode="discrete"))
+    sol = est.solve(problem)
+    compiled = est.lower(problem).compile()
+    before = lqt_scan.launch_count()
+    aot = compiled(problem.ts, problem.y)
+    torch.cuda.synchronize()
+    assert lqt_scan.launch_count() == before + 1
+    assert (cache.hits, cache.misses) == (1, 1)
+    assert aot.cov is None and sol.cov is None
+    for f in ("x", "S", "v", "cost"):
+        assert getattr(aot, f).device.type == "cuda"
+        assert torch.equal(getattr(aot, f), getattr(sol, f)), f
+    with pytest.raises(ValueError, match="compiled signature"):
+        compiled(problem.ts[:-10], problem.y[:-10])
+
+
+@pytest.mark.gpu
+def test_cache_hit_after_fresh_solve_on_card(card):
+    """A fresh solve on the card builds the entry (span ``compile``, one
+    ``cache.compile_seconds`` sample), the repeat hits it (span
+    ``execute``); each launches the scan once; an entry built for cuda:0
+    is not replayed for the CPU."""
+    from repro_torch import obs
+    from repro_torch.core import ExecutableCache
+
+    model, recs = _wiener_records([300, 300],
+                                  torch.Generator().manual_seed(6))
+    problem = Problem.stacked(model, recs[0][0],
+                              np.stack([y for _, y in recs]))
+    cache = ExecutableCache()
+    opts = KernelOptions(nsub=10, mode="discrete")
+    est = Estimator(model, method="parallel_kernel", options=opts,
+                    cache=cache)
+    was = obs.enabled()
+    obs.reset()
+    obs.enable()
+    try:
+        before = lqt_scan.launch_count()
+        first = est.solve(problem)
+        second = est.solve(problem)
+        snap = obs.snapshot()
+    finally:
+        obs.reset()
+        (obs.enable if was else obs.disable)()
+    assert lqt_scan.launch_count() - before == 2
+    assert (cache.hits, cache.misses) == (1, 1)
+    h = snap["histograms"]
+    assert h["cache.compile_seconds"]["count"] == 1
+    assert h["span.estimator.solve.compile"]["count"] == 1
+    assert h["span.estimator.solve.execute"]["count"] == 1
+    assert torch.equal(first.x, second.x)
+    cpu = Estimator(model, method="parallel_kernel", options=opts,
+                    device="cpu", cache=cache).solve(problem)
+    assert cache.misses == 2 and cpu.x.device.type == "cpu"
+    assert float((cpu.x - first.x.cpu()).abs().max()) < 1e-8 * float(
+        cpu.x.abs().max())
+
+
+@pytest.mark.gpu
+def test_pipeline_forward_on_repeated_card_matches_stack(card):
+    """``pipeline_forward`` over hymba-1.5b-smoke's layers in 2 stages on a
+    ``("pipe",)`` mesh of 2 x cuda:0, bf16, through the kernels: the
+    unpipelined stack run microbatch by microbatch on the card, bit for
+    bit, with one attention and one SSD launch per layer and
+    microbatch."""
+    from repro_torch import tree
+    from repro_torch.distributed import Mesh, pipeline_forward
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b-smoke"), num_layers=4)
+    params = transformer.init(cfg, card)
+    S, M, L, per = 2, 3, 64, 2
+    stage_params = tree.tree_map(lambda a: a.reshape(S, per, *a.shape[1:]),
+                                 params["layers"])
+    positions = torch.arange(L, dtype=torch.float32, device="cuda")
+
+    def layers(p, x, n):
+        for layer in transformer._unstack(p, n):
+            x = transformer._layer_forward(layer, x, cfg, positions, True)
+        return x
+
+    x = torch.randn(M, 2, L, cfg.d_model, generator=card,
+                    device="cuda").to(torch.bfloat16)
+    fa_kernel.reset_launch_count()
+    ssd_kernel.reset_launch_count()
+    with torch.no_grad():
+        got = pipeline_forward(lambda p, h: layers(p, h, per), stage_params,
+                               x, Mesh(["cuda:0"] * S, ("pipe",)))
+        assert fa_kernel.launch_count() == cfg.num_layers * M
+        assert ssd_kernel.launch_count() == cfg.num_layers * M
+        want = torch.stack([layers(params["layers"], h, cfg.num_layers)
+                            for h in x])
+    assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+    assert torch.equal(got, want)

@@ -3,14 +3,13 @@ semantics (the reference's ``tests/test_obs.py`` cases), the estimator's
 instrumentation, and parity of the recorded metrics with the JAX
 reference on the same solves.
 
-Documented differences from the reference: the port has no executable
-cache, so it records no ``cache.*`` metric and its first solve reports an
-``execute`` span where the reference's reports ``compile``; the
-reference's ``linearize.slr.*`` counters count once per trace of a fresh
-executable, the port's count every regression it performs.  Everything
-else -- names and values of the ``estimator.*``, ``nonlinear.*``,
-``linearize.*`` and ``padding.*`` metrics -- must agree (counts exactly,
-costs to 1e-9).
+One documented difference from the reference: on a fresh executable the
+reference's ``linearize.slr.*`` counters count once per traced call site,
+the port's count every regression its entry's first run performs (on a
+cache hit both count nothing).  Everything else -- names and values of
+the ``cache.*``, ``estimator.*``, ``nonlinear.*``, ``linearize.*`` and
+``padding.*`` metrics, the fresh entry's ``compile`` span included -- must
+agree (counts exactly, costs to 1e-9).
 """
 import gc
 import json
@@ -36,6 +35,7 @@ from repro.core import time_grid
 from repro_torch import obs
 from repro_torch.configs.coordinated_turn import CoordinatedTurnConfig
 from repro_torch.convert import linear_sde_from_numpy, nonlinear_sde_from_numpy
+from repro_torch.core import ExecutableCache as TExecutableCache
 from repro_torch.core import (
     Estimator,
     IteratedOptions,
@@ -327,21 +327,25 @@ def test_solve_phases_and_counters(lin):
     obs.enable()
     _, tmodel, ts, y = lin
     est = Estimator(tmodel, method="parallel_rts",
-                    options=ParallelOptions(nsub=NSUB), device="cpu")
-    est.solve(Problem.single(tmodel, ts, y))
-    est.solve(Problem.single(tmodel, ts, y))
+                    options=ParallelOptions(nsub=NSUB), device="cpu",
+                    cache=TExecutableCache())
+    est.solve(Problem.single(tmodel, ts, y))      # a new entry
+    est.solve(Problem.single(tmodel, ts, y))      # cached
     snap = obs.snapshot()
-    assert snap["counters"] == {"estimator.solves": 2}
+    assert snap["counters"] == {"estimator.solves": 2, "cache.misses": 1,
+                                "cache.hits": 1}
     h = snap["histograms"]
-    for phase in ("", ".prepare", ".execute", ".host_transfer"):
+    for phase in ("", ".prepare", ".host_transfer"):
         assert h[f"span.estimator.solve{phase}"]["count"] == 2
-    assert "span.estimator.solve.compile" not in h
-    assert not any(k.startswith("cache.") for k in h)
+    assert h["span.estimator.solve.compile"]["count"] == 1
+    assert h["span.estimator.solve.execute"]["count"] == 1
+    assert h["cache.compile_seconds"]["count"] == 1
     assert h["estimator.final_cost"]["count"] == 2
-    [root] = obs.span_trees()[-1:]
-    assert [c["name"] for c in root["children"]] == [
-        "estimator.solve.prepare", "estimator.solve.execute",
-        "estimator.solve.host_transfer"]
+    first, second = obs.span_trees()[-2:]
+    for root, phase in ((first, "compile"), (second, "execute")):
+        assert [c["name"] for c in root["children"]] == [
+            "estimator.solve.prepare", f"estimator.solve.{phase}",
+            "estimator.solve.host_transfer"]
 
 
 def test_nonlinear_iteration_metrics_and_step_norms(ct):
@@ -370,7 +374,12 @@ def test_diagnostics_false_keeps_hot_path_silent(lin):
                     device="cpu")
     sol = est.solve(Problem.single(tmodel, ts, y))
     assert sol.cost is None
-    assert obs.REGISTRY.is_empty()          # no instrument allocated
+    snap = obs.snapshot()
+    # no instrument allocated but the executable cache's own counters, as
+    # in the reference
+    assert snap["histograms"] == {} and snap["gauges"] == {}
+    assert snap["counters"] and all(k.startswith("cache.")
+                                    for k in snap["counters"])
     assert obs.span_trees() == []
 
 
@@ -400,16 +409,10 @@ def test_ragged_solve_reports_padding_metrics():
 
 
 def _normalised(snap):
-    """Metric names by kind, without the documented differences: the
-    reference's ``cache.*`` and its fresh executable's ``compile`` phase
-    (the port's solve always reports ``execute``)."""
-    out = {}
-    for kind in ("counters", "gauges", "histograms"):
-        names = {k.replace("estimator.solve.compile", "estimator.solve.execute")
-                 for k in snap[kind]}
-        out[kind] = sorted(n for n in names if not n.startswith("cache.")
-                           and ".cache." not in n)
-    return out
+    """Metric names by kind (the cache's and the fresh entry's ``compile``
+    phase included)."""
+    return {kind: sorted(snap[kind])
+            for kind in ("counters", "gauges", "histograms")}
 
 
 def _ragged_records(jmodel):
@@ -427,7 +430,8 @@ SCENARIOS = {
                    options=JParallelOptions(nsub=NSUB, mode="discrete"),
                    cache=ExecutableCache()),
         Estimator(tm, method="parallel_kernel", device="cpu",
-                  options=KernelOptions(nsub=NSUB, mode="discrete"))),
+                  options=KernelOptions(nsub=NSUB, mode="discrete"),
+                  cache=TExecutableCache())),
     "taylor": lambda jm, tm: (
         JEstimator(jm, method="parallel_rts", cache=ExecutableCache(),
                    options=JIteratedOptions(
@@ -436,7 +440,8 @@ SCENARIOS = {
         Estimator(tm, method="parallel_rts", device="cpu",
                   options=IteratedOptions(
                       inner=ParallelOptions(nsub=NSUB, mode="discrete"),
-                      iterations=ITERS))),
+                      iterations=ITERS),
+                  cache=TExecutableCache())),
     "sigma_point": lambda jm, tm: (
         JEstimator(jm, method="sigma_point", cache=ExecutableCache(),
                    options=JSigmaPointOptions(
@@ -445,7 +450,8 @@ SCENARIOS = {
         Estimator(tm, method="sigma_point", device="cpu",
                   options=SigmaPointOptions(
                       inner=ParallelOptions(nsub=NSUB, mode="discrete"),
-                      iterations=ITERS))),
+                      iterations=ITERS),
+                  cache=TExecutableCache())),
 }
 
 
@@ -495,7 +501,7 @@ def test_metric_names_match_reference(parity_runs, scenario):
 def test_metric_values_match_reference(parity_runs, scenario):
     ref, port = parity_runs[scenario]["ref"], parity_runs[scenario]["port"]
     for name, value in ref["counters"].items():
-        if name.startswith(("cache.", "linearize.slr.")):
+        if name.startswith("linearize.slr."):
             continue
         assert port["counters"][name] == value, name
     for name, value in ref["gauges"].items():
@@ -510,10 +516,11 @@ def test_metric_values_match_reference(parity_runs, scenario):
 
 
 def test_slr_counters_count_every_regression(parity_runs):
-    """The port's ``linearize.slr.*`` count the regressions performed:
-    f and h at every interval's left point, each pass; the reference's
-    count the same per traced call of its vmapped grid (two traced passes
-    of a fresh executable: the scan body and the last pass)."""
+    """On a fresh entry the port's ``linearize.slr.*`` count the
+    regressions performed: f and h at every interval's left point, each
+    pass; the reference's count the same per traced call of its vmapped
+    grid (two traced passes of a fresh executable: the scan body and the
+    last pass)."""
     run = parity_runs["sigma_point"]
     N, S = run["N"], 2 * 5 + 1                 # unscented, nx = 5
     port, ref = run["port"]["counters"], run["ref"]["counters"]

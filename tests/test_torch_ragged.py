@@ -475,14 +475,13 @@ def test_slice_solution_matches_reference():
 
 def test_core_surface_matches_reference():
     """The port's ``repro_torch.core`` exports the reference's
-    ``repro.core`` surface but for the executable cache, which is not
-    ported yet."""
+    ``repro.core`` surface, the executable cache included."""
     import repro.core as jcore
 
-    not_yet = {"ExecutableCache", "cache_stats", "clear_cache"}
-    missing = set(jcore.__all__) - not_yet - set(core.__all__)
+    missing = set(jcore.__all__) - set(core.__all__)
     assert not missing, sorted(missing)
-    assert not not_yet & set(core.__all__)
+    assert {"ExecutableCache", "cache_stats", "clear_cache"} <= set(
+        core.__all__)
 
 
 @pytest.fixture(scope="module", autouse=True)
