@@ -179,7 +179,22 @@ Phases, each of which fails the run on any miss:
                  reference's 0.05 / 2e-3 error-feedback bounds, 3 steps
                  beside 3 uncompressed ones from the same weights and data
                  (finite losses), launches, ms a step and peak memory;
-5e. MoE serving -- ``ServeEngine.generate`` on granite-moe-3b-a800m (40
+5e. sharded training -- ``make_train_step`` on ShardedTensors
+                 (``repro_torch.distributed.spmd``): hymba-1.5b at full
+                 width and 8 layers on a ("data", "model") mesh of 2 x 2
+                 cuda:0 (q/k/v on ``head``, attention at full heads a data
+                 group; the SSM's ``ssm_x`` weights gathered), 2 x 2048
+                 tokens a data shard, zero1, 3 bf16 AdamW steps: finite
+                 losses, the step-1 loss within 1e-2 of the single-device
+                 loss, exact ``mma`` launches, ms and tokens/s a step, peak
+                 memory, the collective log (counts and bytes by kind);
+                 first its float32 gate at 2 layers, 2 x 512 tokens, one
+                 step against the single-device step at the reference
+                 test's tolerances (loss, gradients, params outside
+                 AdamW's eps band); the same for granite-moe-3b after 5h
+                 on a 2 x 4 mesh (expert parallelism, 10 experts a shard;
+                 head-local attention, 6/2 heads a shard);
+5f. MoE serving -- ``ServeEngine.generate`` on granite-moe-3b-a800m (40
                  experts, top 8) at full width and depth in bfloat16, the
                  hymba cell's shape: 32 ``mma`` attention launches per
                  wave and no SSD, prefill ms per wave, decode ms per step,
@@ -187,18 +202,18 @@ Phases, each of which fails the run on any miss:
                  layer at prefill (the layer's own rank and capacity), and
                  one profiled prefill and decode step with the MoE layer's
                  share of busy time;
-5f. MoE cross-path -- granite's weights at 2 layers in float32, one wave:
+5g. MoE cross-path -- granite's weights at 2 layers in float32, one wave:
                  the kernel path's last logits against the plain path's
                  within 1e-3 and the same first tokens, with the expert
                  choices the two paths route differently per layer;
-5g. MoE training -- ``Trainer.run`` on granite-moe-3b at full width and 16
+5h. MoE training -- ``Trainer.run`` on granite-moe-3b at full width and 16
                  of its 32 layers in bfloat16, 8 x 2048 tokens a step in 2
                  microbatches for 4 steps: finite losses (the router
                  balance term included), ``remat_forwards`` x 2 ``mma``
                  attention launches a step, the peak memory, and a nonzero
                  router gradient in every layer; then 5c on granite's
                  widths with the routing differences of the forward;
-5h. the zoo   -- the other eight architectures (mamba2, smollm, qwen3,
+5i. the zoo   -- the other eight architectures (mamba2, smollm, qwen3,
                  danube, starcoder2, hubert, llava, phi3.5) at full width
                  and 2 layers: 5c at 2 x 2048 tokens (embeddings for
                  hubert and llava), and for each token-input decoder one
@@ -345,6 +360,25 @@ PIPE_STAGES, PIPE_MICRO, PIPE_BATCH = 4, 4, 2
 # of 2 x cuda:0, 2 x 2048 tokens a shard, 3 steps; error feedback over 40
 # compressions (tests/test_distributed.py's own count)
 DP_LAYERS, DP_SHARDS, DP_BATCH, DP_STEPS, EF_STEPS = 8, 2, 2, 3, 40
+# sharded training path: the model at full width, depth cut from 32 to 8
+# layers (every shard's params, grads and optimizer state share one card),
+# on a ("data", "model") mesh repeating cuda:0 (hymba 2 x 2, granite 2 x 4),
+# 2 x 2048 tokens a data shard, 3 AdamW steps, zero1; its float32 check at 2
+# layers, 2 x 512 tokens, one step against the single-device step at the
+# reference test's tolerances (tests/test_distributed.py: loss rtol 1e-5 /
+# atol 1e-6, params rtol 5e-4 / atol 5e-5, the gradients at the params'
+# rtol of each leaf's largest magnitude), the params outside the band
+# |g| < 100 eps where AdamW's first update lr g / (|g| + eps) turns a
+# float32 gradient noise d into up to lr d / eps; the bf16 step-1 loss
+# within SHARD_BF16_RTOL of the single-device loss (bf16 sums in another
+# order, stated before the first run)
+SHARD_MESHES = {LM_ARCH: (2, 2), MOE_ARCH: (2, 4)}
+SHARD_LAYERS, SHARD_BATCH, SHARD_STEPS = 8, 2, 3
+SHARD_CHECK_LAYERS, SHARD_CHECK_SEQ = 2, 512
+SHARD_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+SHARD_PARAM_TOL = dict(rtol=5e-4, atol=5e-5)
+SHARD_ADAM_BAND = 100       # times AdamW's eps
+SHARD_BF16_RTOL = 1e-2
 # name fragments of the port's kernels in a profiler trace
 PORT_KERNELS = ("flash_attn", "ssd_", "lqt_combine", "lqt_scan")
 
@@ -725,8 +759,9 @@ def check_scan(g, lqt_scan, lqt_ref) -> None:
 # microbatch (batch 4), granite-moe-3b's (the same batches), the zoo's
 # prefill waves of 2 x 2048 (smollm 9/3 heads; qwen3 and phi3.5 32/8 at
 # D = 128; danube 32/8 at D = 80 with its 4096 window; starcoder2 48/4 at
-# D = 128) and hubert's non-causal MHA at D = 80, and two ragged-edge
-# cases at D = 80, in both dtypes; then
+# D = 128) and hubert's non-causal MHA at D = 80, granite's head-local
+# shard on a model axis of 4 (6/2 heads, a data shard of 2 x 2048), and
+# two ragged-edge cases at D = 80, in both dtypes; then
 # bfloat16 cases for the tensor-core kernel's tiling: D in {16, 32, 80,
 # 128}, Lq < Lk (decode alignment), Lq and Lk off the 64-row tiles, windows
 # off the tiles, and no causal mask.
@@ -748,6 +783,7 @@ FA_CASES = [
     (2, 32, 8, 2048, 2048, 80, True, 4096),
     (2, 48, 4, 2048, 2048, 128, True, None),
     (2, 16, 16, 2048, 2048, 80, False, None),
+    (2, 6, 2, 2048, 2048, 64, True, None),
     (1, 4, 2, 100, 300, 80, True, None),
     (1, 6, 2, 200, 200, 80, True, 70),
 ]
@@ -3432,6 +3468,207 @@ def compressed_dp_path(cfg, fa_kernel, ssd_kernel) -> dict:
     return launches
 
 
+def shard_mesh(shape):
+    from repro_torch.distributed import Mesh
+
+    return Mesh(np.array(["cuda:0"] * int(np.prod(shape)),
+                         dtype=object).reshape(shape), ("data", "model"))
+
+
+def shard_state(cfg, tcfg, mesh, params) -> tuple:
+    """``params`` and a fresh AdamW state laid out for ``mesh`` by
+    ``make_shardings`` (ShardedTensors)."""
+    from repro_torch.distributed import mesh_context, spmd
+    from repro_torch.train import adamw_init
+    from repro_torch.train.trainer import make_shardings
+
+    with mesh_context(mesh):
+        p_sh, o_sh = make_shardings(cfg, tcfg, mesh)
+        opt = spmd.device_put(adamw_init(params), o_sh)
+        return spmd.device_put(params, p_sh), opt
+
+
+def sharded_steps(cfg, tcfg, mesh, params, opt, batches, loss_fn,
+                  on_step=None) -> tuple:
+    """``make_train_step`` on sharded ``params`` and ``opt`` over
+    ``batches`` (split over the data axis); ``on_step(i, None)`` before and
+    ``on_step(i, metrics)`` after step ``i``.  Returns the params, the
+    optimizer state and each step's metrics."""
+    from repro_torch import tree
+    from repro_torch.distributed import mesh_context, spmd
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import make_train_step
+
+    out = []
+    with mesh_context(mesh):
+        b_sh = tree.tree_map(lambda x: shd.named_sharding(
+            x.shape, ("batch",) + (None,) * (x.dim() - 1)), batches[0])
+        step = make_train_step(cfg, tcfg, loss_fn)
+        for i, batch in enumerate(batches):
+            if on_step is not None:
+                on_step(i, None)
+            params, opt, m = step(params, opt, spmd.device_put(batch, b_sh))
+            out.append(m)
+            if on_step is not None:
+                on_step(i, m)
+    return params, opt, out
+
+
+def sharded_check(cfg, shape) -> None:
+    """The float32 gate: one sharded step of ``cfg`` at full width and
+    SHARD_CHECK_LAYERS layers, 2 x SHARD_CHECK_SEQ tokens, through the
+    kernels, against the single-device step on the same weights and
+    batch: the loss, every gradient (from AdamW's first moment) and the
+    params (outside the AdamW eps band) at the reference test's
+    tolerances."""
+    from repro_torch import tree
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed import spmd
+    from repro_torch.models import transformer
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.data import LMDataPipeline
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=SHARD_CHECK_LAYERS)
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1, zero1=True)
+    loss_fn = functools.partial(transformer.train_loss, cfg=cfg32,
+                                use_kernel=True)
+    params = transformer.init(
+        cfg32, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = tree.tree_map(lambda t: t.cuda(), LMDataPipeline(
+        vocab_size=cfg.vocab_size, seq_len=SHARD_CHECK_SEQ,
+        global_batch=shape[0], seed=SEED).batch_at(0))
+    copy = tree.tree_map(lambda t: t.clone(), params)
+    p1, o1, m1 = make_train_step(cfg32, tcfg, loss_fn)(
+        copy, adamw_init(copy), batch)
+    del copy
+    mesh = shard_mesh(shape)
+    p2, o2, (m2,) = sharded_steps(cfg32, tcfg, mesh, *shard_state(
+        cfg32, tcfg, mesh, params), [batch], loss_fn)
+    del params
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    ok = abs(l2 - l1) <= SHARD_LOSS_TOL["atol"] + SHARD_LOSS_TOL["rtol"] * abs(l1)
+    g_err, band, band_miss, miss = 0.0, 0, 0, 0
+    eps = tcfg.eps * SHARD_ADAM_BAND
+    for (path, a), b, ma, mb in zip(tree.flatten(p2), tree.leaves(p1),
+                                    tree.leaves(o2.m), tree.leaves(o1.m)):
+        a, ma = spmd.gather(a, b.device), spmd.gather(ma, b.device)
+        g_err = max(g_err, float((ma - mb).abs().max()
+                                 / mb.abs().max().clamp_min(1e-30)))
+        out = (a - b).abs() > (SHARD_PARAM_TOL["atol"]
+                               + SHARD_PARAM_TOL["rtol"] * b.abs())
+        near = (mb / (1 - tcfg.b1)).abs() < eps
+        band += int(near.sum())
+        band_miss += int((out & near).sum())
+        miss += int((out & ~near).sum())
+        del a, ma
+    log(f"  float32 check, {SHARD_CHECK_LAYERS} layers, {shape[0]} x "
+        f"{SHARD_CHECK_SEQ} tokens, one step: loss {l2:.7f} sharded vs "
+        f"{l1:.7f} single-device (rtol {SHARD_LOSS_TOL['rtol']:.0e}); "
+        f"gradients max|diff| / max|g| per leaf {g_err:.3e} (tol "
+        f"{SHARD_PARAM_TOL['rtol']:.0e}); params outside rtol 5e-4 / atol "
+        f"5e-5: {miss} (gate 0) of {sum(x.numel() for x in tree.leaves(p1))},"
+        f" and {band_miss} more among the {band} whose |g| < "
+        f"{SHARD_ADAM_BAND} eps (not gated)")
+    if not (ok and g_err <= SHARD_PARAM_TOL["rtol"] and miss == 0):
+        raise AssertionError("sharded float32 step disagrees with the "
+                             "single-device step")
+
+
+def sharded_training_path(cfg, fa_kernel, ssd_kernel) -> tuple:
+    """The sharded training step (``repro_torch.distributed.spmd``) on
+    ``cfg`` at full width: the float32 gate, then SHARD_STEPS bf16 AdamW
+    steps at SHARD_LAYERS layers on its SHARD_MESHES mesh of cuda:0,
+    SHARD_BATCH x 2048 tokens a data shard: finite losses, the step-1 loss
+    within SHARD_BF16_RTOL of the single-device loss, exact launches of
+    each LM kernel (per data group and remat forward: one, or one per model
+    shard where attention is head-local), ms and tokens/s a step, peak
+    memory and the collective log per step.  Returns the config a launch
+    runs at (heads per shard), the batch per launch and the launches."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import transformer
+
+    shape = SHARD_MESHES[cfg.name]
+    d, m = shape
+    sharded_check(cfg, shape)
+    torch.cuda.empty_cache()
+
+    cfg8 = dataclasses.replace(cfg, num_layers=SHARD_LAYERS)
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=d * SHARD_BATCH,
+                       learning_rate=3e-4, warmup_steps=1,
+                       total_steps=SHARD_STEPS, zero1=True, seed=SEED)
+    loss_fn = functools.partial(transformer.train_loss, cfg=cfg8,
+                                use_kernel=True)
+    params = transformer.init(
+        cfg8, torch.Generator(device="cuda").manual_seed(SEED))
+    batches = [lm_batch(cfg8, d * SHARD_BATCH, step)
+               for step in range(SHARD_STEPS)]
+    with torch.no_grad():
+        single = float(loss_fn(params, batches[0]))
+    head_local = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    attn = d * (m if head_local else 1) * remat_forwards(cfg8) * SHARD_STEPS
+    want = lm_kernel_launches(cfg8, d * remat_forwards(cfg8) * SHARD_STEPS)
+    want["flash_attention"] = attn if want["flash_attention"] else 0
+    tokens = d * SHARD_BATCH * TRAIN_SEQ
+    log(f"{cfg.name} at {SHARD_LAYERS} of {cfg.num_layers} layers (depth "
+        f"cut; full width), bf16, a (data, model) mesh of {d} x {m} "
+        f"cuda:0, {SHARD_BATCH} x {TRAIN_SEQ} tokens a data shard, zero1, "
+        f"{SHARD_STEPS} AdamW steps; attention "
+        f"{'head-local, ' + str(cfg.num_heads // m) + '/' + str(cfg.num_kv_heads // m) + ' heads a shard' if head_local else 'at full heads a data group'}; "
+        f"single-device step-1 loss {single:.5f}; on {card()}")
+    starts, ends = [], []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        (starts if metrics is None else ends).append(ev)
+
+    mesh = shard_mesh(shape)
+    p, o = shard_state(cfg8, tcfg, mesh, params)
+    del params
+    fa_kernel.reset_launch_count()
+    ssd_kernel.reset_launch_count()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p, o, metrics = sharded_steps(cfg8, tcfg, mesh, p, o, batches, loss_fn,
+                                  on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counted_launches(fa_kernel, ssd_kernel, want, "mma",
+                                f"main path ({SHARD_STEPS} sharded steps)")
+    del p, o
+    ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    losses = [float(x["loss"]) for x in metrics]
+    for i, (x, t) in enumerate(zip(metrics, ms)):
+        log(f"  step {i + 1}: {t:.1f} ms (CUDA events), "
+            f"{tokens / t * 1e3:.0f} tokens/s, loss {losses[i]:.5f}, "
+            f"grad_norm {float(x['grad_norm']):.4f}")
+    by_kind = metrics[0]["collectives"].by_kind()
+    log(f"  collectives a step (one device's schedule): "
+        + ", ".join(f"{k} {n} ({b / 1e6:.2f} MB)"
+                    for k, (n, b) in sorted(by_kind.items()))
+        + f"; {sum(b for _, b in by_kind.values()) / 1e6:.2f} MB in all")
+    sizes = collections.Counter(metrics[0]["collectives"])
+    log("  largest: " + "; ".join(
+        f"{n} x {c.kind} of {c.bytes / 1e6:.2f} MB over {c.group}"
+        for c, n in sorted(sizes.items(), key=lambda cn: -cn[0].bytes
+                           * cn[1])[:6]))
+    step_ms = statistics.median(ms[1:])
+    rel = abs(losses[0] - single) / abs(single)
+    log(f"  steps 2..{SHARD_STEPS}: median {step_ms:.1f} ms, "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB; step-1 loss sharded {losses[0]:.5f} vs "
+        f"single-device {single:.5f}: relative {rel:.3e} (bound "
+        f"{SHARD_BF16_RTOL:.0e}); on {card()}")
+    if not (np.isfinite(losses).all() and rel <= SHARD_BF16_RTOL):
+        raise AssertionError(f"sharded training: losses {losses}, single "
+                             f"{single}")
+    at = (dataclasses.replace(cfg8, name=f"{cfg.name} head-local",
+                              num_heads=cfg.num_heads // m,
+                              num_kv_heads=cfg.num_kv_heads // m)
+          if head_local else cfg8)
+    return at, SHARD_BATCH, launches
+
 def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
     """``{name: (ms, profiler ms)}`` per call of each function, timed in
     turns (a, b, ..., then again) so that the card's state is shared: CUDA
@@ -3746,11 +3983,20 @@ def main() -> int:
           f"on {DP_SHARDS} x cuda:0")
     dp_launches = compressed_dp_path(cfg, fa_kernel, ssd_kernel)
     torch.cuda.empty_cache()
+    phase(f"sharded training path: {LM_ARCH}, {SHARD_LAYERS} layers on a "
+          f"{' x '.join(map(str, SHARD_MESHES[LM_ARCH]))} (data, model) "
+          f"mesh of cuda:0")
+    t0 = time.perf_counter()
+    hymba_sharded = sharded_training_path(cfg, fa_kernel, ssd_kernel)
+    torch.cuda.empty_cache()
+    log(f"sharded training phase ({LM_ARCH}): "
+        f"{time.perf_counter() - t0:.1f} s")
     micro = TRAIN_BATCH // TRAIN_MICRO
     lm_paths = {"serving": (cfg, LM_BATCH, launches),
                 "training": (cfg, micro, train_launches),
                 "pipeline": (cfg, PIPE_BATCH, pipe_launches),
-                "compressed data-parallel": (cfg, DP_BATCH, dp_launches)}
+                "compressed data-parallel": (cfg, DP_BATCH, dp_launches),
+                "sharded training": hymba_sharded}
 
     t0 = time.perf_counter()
     phase(f"serving path: {MOE_ARCH}, bfloat16, full width and depth")
@@ -3780,6 +4026,15 @@ def main() -> int:
     phase(f"{MOE_ARCH} training: kernel path vs plain path, float32")
     training_cross_path(mcfg, fa_kernel, ssd_kernel)
     torch.cuda.empty_cache()
+    phase(f"sharded training path: {MOE_ARCH}, {SHARD_LAYERS} layers on a "
+          f"{' x '.join(map(str, SHARD_MESHES[MOE_ARCH]))} (data, model) "
+          f"mesh of cuda:0")
+    t1 = time.perf_counter()
+    lm_paths["granite sharded training"] = sharded_training_path(
+        mcfg, fa_kernel, ssd_kernel)
+    torch.cuda.empty_cache()
+    log(f"sharded training phase ({MOE_ARCH}): "
+        f"{time.perf_counter() - t1:.1f} s")
     log(f"{MOE_ARCH} phases: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -177,8 +177,9 @@ class TrainConfig:
     seq_len: int = 1024
     global_batch: int = 8
     microbatches: int = 1        # grad-accumulation steps
-    # Sharding of the reference's multi-device step (ZeRO-1 optimizer
-    # state, compressed all-reduce); the port trains on one card.
+    # The sharded step: ZeRO-1 optimizer state over the data axes
+    # (train.trainer.make_shardings); the compressed all-reduce is not
+    # wired into the step, as in the reference.
     zero1: bool = True
     grad_compress: bool = False
     seed: int = 0

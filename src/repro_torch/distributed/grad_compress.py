@@ -11,7 +11,10 @@ The reference calls :func:`compressed_psum` inside a ``shard_map`` over
 the data axis.  The port is single-controller: the function takes the
 per-shard gradients, one tree per device of the axis, and returns one
 result per shard, as the reference's shard-mapped call holds one on each
-device.  Nothing in the ``Trainer`` reads it, as in the reference.
+device.  Nothing in the ``Trainer`` reads it, as in the reference
+(``TrainConfig.grad_compress`` stays unwired); the sharded step of
+``train.trainer.make_train_step`` sums gradients in float32 into
+the ZeRO-1 layout that ``TrainConfig.zero1`` selects (``make_shardings``).
 """
 from __future__ import annotations
 

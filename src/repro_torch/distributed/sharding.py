@@ -1,17 +1,19 @@
-"""The device mesh of the estimation system: ``MeshSpec`` and the batch split.
+"""The device mesh: ``MeshSpec``, the batch split, and the logical sharding
+rules of the language models.
 
 The port is single-controller, as the reference is: one
-``Estimator.solve`` in one process returns the whole ``Solution``.  A
-:class:`Mesh` is a numpy object array of ``torch.device``\\ s with axis
+``Estimator.solve`` or train step in one process returns the whole result.
+A :class:`Mesh` is a numpy object array of ``torch.device``\\ s with axis
 names (``.shape[axis]`` and ``.axis_names`` as in ``jax.sharding.Mesh``).
 Work placed on a device runs there through CUDA's asynchronous launches,
 so one host thread keeps every card of a node busy; the carries and the
 per-shard results travel by ``Tensor.to``.
 
-* :class:`MeshSpec` describes the 2-D (time x batch) layout.
-  ``.build()`` lays devices into a :class:`Mesh`; ``.activate()`` makes it
-  ambient (:func:`mesh_context`) for the distributed solver, which
-  resolves its time axis with :func:`resolve_time_mesh`.
+* :class:`MeshSpec` describes the 2-D (time x batch) layout of the
+  estimation system.  ``.build()`` lays devices into a :class:`Mesh`;
+  ``.activate()`` makes it ambient (:func:`mesh_context`) for the
+  distributed solver, which resolves its time axis with
+  :func:`resolve_time_mesh`.
 * An explicit device list may name a device more than once: meshes of
   ``P x cpu`` or ``P x cuda:0`` run every shard's work, carries and
   fix-ups as a mesh of P cards would, on one device (the reference's
@@ -22,7 +24,26 @@ per-shard results travel by ``Tensor.to``.
   mesh's batch axis (the request-axis decomposition); time sharding is
   :func:`repro_torch.core.pscan.sharded_scan`.
 
-A multi-host mesh would need one process per host and
+The rest of the module is the reference's LOGICAL axis rules (DP/TP/EP/SP)
+with divisibility fallback.  Parameters and activations carry logical axis
+names ("embed", "heads", "ff", "vocab", "experts", ...);
+:func:`choose_pspec` maps a logical shape to a :class:`PartitionSpec` for
+the ambient mesh:
+
+* exactly one dimension is model-sharded, the first logical axis in
+  ``MODEL_PRIORITY`` that is present, not excluded (``tp_exclude``), and
+  whose size the model axis divides and is at least (llava's 56 q-heads do
+  not divide 16 and fall through to the 128 head_dim; granite's 40 experts
+  fall through to d_ff);
+* "batch" (and the optimizer state's "zero1") shards over the data axes
+  ("pod", "data" by default), falling back to fewer of them when the
+  dimension does not divide their product;
+* "seq_sp" (sequence parallelism, opt-in) goes to the model axis.
+
+A :class:`NamedSharding` pairs a mesh with a spec: it gives the local shard
+shape of a global shape and the slice each mesh position holds.
+:mod:`repro_torch.distributed.spmd` executes programs on tensors laid out
+by them.  A multi-host mesh would need one process per host and
 ``torch.distributed``; this module holds a single process's devices.
 """
 from __future__ import annotations
@@ -65,6 +86,10 @@ class Mesh:
         """Axis name -> size, in axis order."""
         return dict(zip(self.axis_names, self.devices.shape))
 
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
     def axis_devices(self, axis: str) -> list:
         """The devices along ``axis``, at index 0 of every other axis."""
         k = self.axis_names.index(axis)
@@ -91,29 +116,56 @@ def default_devices(device_type: str = "cuda") -> list:
     return [torch.device(device_type)]
 
 
+# priority of logical axes for the single model-sharded dimension
+MODEL_PRIORITY: Sequence[str] = (
+    "experts", "vocab", "ff", "heads", "kv_heads", "ssm_inner", "ssm_x",
+    "ssm_heads", "head", "embed_model",
+)
+
+# logical axes that shard over the data (+pod) axes
+BATCH_AXES = ("batch",)
+
+# logical axes that may shard over the model axis for sequence parallelism
+# (opt-in)
+SEQ_AXES = ("seq_sp",)
+
+
 class _MeshContext(threading.local):
     def __init__(self):
         self.mesh: Optional[Mesh] = None
         self.data_axes: tuple = ("data",)
+        self.model_axis: Optional[str] = "model"
+        self.tp_exclude: frozenset = frozenset()
 
 
 _CTX = _MeshContext()
 
 
 @contextlib.contextmanager
-def mesh_context(mesh: Mesh, *, batch_axes: Optional[tuple] = None):
-    """Make ``mesh`` the ambient mesh of this thread; ``batch_axes`` names
-    the mesh axes that shard the record axis (default: ``"pod"`` and
-    ``"data"`` where present)."""
-    prev = (_CTX.mesh, _CTX.data_axes)
+def mesh_context(mesh: Mesh, *, batch_axes: Optional[tuple] = None,
+                 tp_exclude=()):
+    """Make ``mesh`` the ambient mesh of this thread.
+
+    ``batch_axes`` names the mesh axes that shard the batch (the record
+    axis of a solve, an LM batch, the ZeRO-1 optimizer state; default:
+    ``"pod"`` and ``"data"`` where present), e.g. ``("pod", "data",
+    "model")`` for the dp-only policy of small models.  The model axis is
+    ``"model"`` where the mesh has one; ``tp_exclude`` removes logical
+    names from the model-sharding priority (e.g. everything but "vocab"
+    under dp-only).
+    """
+    prev = (_CTX.mesh, _CTX.data_axes, _CTX.model_axis, _CTX.tp_exclude)
     _CTX.mesh = mesh
     names = mesh.axis_names
-    _CTX.data_axes = tuple(a for a in (batch_axes or ("pod", "data"))
-                           if a in names)
+    _CTX.data_axes = tuple(a for a in (("pod", "data") if batch_axes is None
+                                       else batch_axes) if a in names)
+    _CTX.model_axis = "model" if "model" in names else None
+    _CTX.tp_exclude = frozenset(tp_exclude)
     try:
         yield mesh
     finally:
-        _CTX.mesh, _CTX.data_axes = prev
+        (_CTX.mesh, _CTX.data_axes, _CTX.model_axis,
+         _CTX.tp_exclude) = prev
 
 
 def active_mesh() -> Optional[Mesh]:
@@ -322,3 +374,187 @@ def shard_over_batch(fn, mesh: Mesh, batch_axis: str,
         return _concat(outs, batched[0][0].device)
 
     return sharded
+
+
+# ---------------------------------------------------------------------------
+# logical sharding rules
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """How each dimension of a tensor spreads over mesh axes: one entry per
+    dimension, ``None`` (replicated), an axis name, or a tuple of names
+    (the first the major).  An immutable tuple, so it compares equal to a
+    plain tuple (or a ``jax.sharding.PartitionSpec``) of the same
+    entries; a tensor of more dimensions than entries is replicated on
+    the rest."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _axis_size(mesh: Mesh, names) -> int:
+    size = 1
+    for n in names if isinstance(names, tuple) else (names,):
+        size *= mesh.shape[n]
+    return size
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`PartitionSpec` on a :class:`Mesh`: which slice of a global
+    tensor each mesh position holds.  Positions are index tuples into
+    ``mesh.devices``; a dimension split over axes ``(a, b)`` is cut into
+    ``size(a) * size(b)`` equal blocks, block ``i_a * size(b) + i_b`` at
+    position ``(.., i_a, .., i_b, ..)``; positions that differ only on
+    axes the spec does not name hold replicas."""
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def parts(self, ndim: int) -> tuple:
+        """The number of blocks each of ``ndim`` dimensions is cut into."""
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        return tuple(_axis_size(self.mesh, _entry_axes(e)) if e else 1
+                     for e in spec[:ndim])
+
+    def shard_shape(self, shape) -> tuple:
+        """The local shape of a tensor of global ``shape``."""
+        out = []
+        for n, k in zip(shape, self.parts(len(shape))):
+            if n % k:
+                raise ValueError(f"dimension {n} of {tuple(shape)} does not "
+                                 f"divide into the {k} blocks of {self.spec}")
+            out.append(n // k)
+        return tuple(out)
+
+    def index(self, position: tuple, shape) -> tuple:
+        """The slices of a tensor of global ``shape`` that mesh
+        ``position`` holds."""
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        at = dict(zip(self.mesh.axis_names, position))
+        local = self.shard_shape(shape)
+        out = []
+        for entry, n in zip(spec, local):
+            block = 0
+            for a in _entry_axes(entry):
+                block = block * self.mesh.shape[a] + at[a]
+            out.append(slice(block * n, (block + 1) * n))
+        return tuple(out)
+
+
+def choose_pspec(shape: Sequence[int], logical: Sequence[Optional[str]],
+                 mesh: Optional[Mesh] = None) -> PartitionSpec:
+    """Map logical axes to a PartitionSpec under the active mesh (the empty
+    spec without one)."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return PartitionSpec()
+    if len(shape) != len(logical):
+        raise ValueError(f"shape {tuple(shape)} and logical axes "
+                         f"{tuple(logical)} differ in length")
+    entries: list = [None] * len(shape)
+
+    # batch / ZeRO-1 axes -> the data axes, with progressive fallback to
+    # fewer axes when the dimension does not divide the full product
+    # (e.g. batch 256 on a 512-chip dp-only layout).
+    for i, name in enumerate(logical):
+        if name in BATCH_AXES + ("zero1",) and _CTX.data_axes:
+            axes = tuple(_CTX.data_axes)
+            while axes:
+                if shape[i] % _axis_size(mesh, axes) == 0:
+                    entries[i] = axes if len(axes) > 1 else axes[0]
+                    break
+                axes = axes[1:]
+
+    def used_axes() -> set:
+        out = set()
+        for e in entries:
+            out.update(_entry_axes(e))
+        return out
+
+    # sequence-parallel axis -> the model axis (megatron-style SP)
+    if _CTX.model_axis is not None and _CTX.model_axis not in used_axes():
+        msize = mesh.shape[_CTX.model_axis]
+        for i, name in enumerate(logical):
+            if name in SEQ_AXES and entries[i] is None \
+                    and shape[i] % msize == 0:
+                entries[i] = _CTX.model_axis
+                break
+
+    # one model-sharded dim by priority with divisibility fallback
+    if _CTX.model_axis is not None and _CTX.model_axis not in used_axes():
+        msize = mesh.shape[_CTX.model_axis]
+        for cand in MODEL_PRIORITY:
+            if cand in _CTX.tp_exclude:
+                continue
+            placed = False
+            for i, name in enumerate(logical):
+                if name == cand and entries[i] is None \
+                        and shape[i] % msize == 0 and shape[i] >= msize:
+                    entries[i] = _CTX.model_axis
+                    placed = True
+                    break
+            if placed:
+                break
+    return PartitionSpec(*entries)
+
+
+def logical_constraint(x, *logical: Optional[str]):
+    """``x`` laid out by its logical axes on the ambient mesh (a
+    :class:`repro_torch.distributed.spmd.ShardedTensor`); ``x`` itself
+    without a mesh.  The model code calls no such pin: the executor of
+    :mod:`repro_torch.distributed.spmd` places its activations itself."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    from .spmd import device_put
+    return device_put(x, NamedSharding(mesh, choose_pspec(x.shape, logical,
+                                                          mesh)))
+
+
+def named_sharding(shape, logical, mesh: Optional[Mesh] = None):
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, choose_pspec(shape, logical, mesh))
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def map_axes(fn, axes_tree, *rest):
+    """``fn(axes, *leaves)`` over a tree whose leaves are logical-axes
+    tuples, and trees of the same structure (dicts and NamedTuples)."""
+    if _is_axes(axes_tree):
+        return fn(axes_tree, *rest)
+    if isinstance(axes_tree, dict):
+        return {k: map_axes(fn, v, *(r[k] for r in rest))
+                for k, v in axes_tree.items()}
+    items = [map_axes(fn, v, *(r[i] for r in rest))
+             for i, v in enumerate(axes_tree)]
+    return (type(axes_tree)(*items) if hasattr(axes_tree, "_fields")
+            else type(axes_tree)(items))
+
+
+def tree_pspecs(axes_tree, shapes_tree, mesh: Optional[Mesh] = None):
+    """Map a tree of logical-axes tuples + shapes to PartitionSpecs."""
+    mesh = mesh or _CTX.mesh
+    return map_axes(lambda ax, shp: choose_pspec(shp, ax, mesh),
+                     axes_tree, shapes_tree)
+
+
+def tree_shardings(axes_tree, shapes_tree, mesh: Optional[Mesh] = None):
+    mesh = mesh or _CTX.mesh
+    return map_axes(lambda ax, shp: NamedSharding(
+        mesh, choose_pspec(shp, ax, mesh)), axes_tree, shapes_tree)

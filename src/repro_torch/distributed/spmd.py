@@ -1,0 +1,785 @@
+"""Sharded execution on a single-controller mesh: the port's counterpart of
+``jax.jit(step, in_shardings=..., out_shardings=...)`` for the language
+models' training step.
+
+The reference lays parameters, optimizer state and batch out by the rules
+of :mod:`repro_torch.distributed.sharding` and lets GSPMD partition the
+program.  The port has no partitioner, so this module executes the
+shardings itself, on a :class:`~repro_torch.distributed.sharding.Mesh`
+that may repeat a device (``["cuda:0"] * 8`` stands in for eight cards).
+
+**Containers.**  A :class:`ShardedTensor` holds one local tensor per mesh
+position, laid out by a :class:`~.sharding.NamedSharding`; positions on
+axes its spec does not name hold replicas (separate tensors, even on one
+device).  :func:`device_put` lays a tree out, :func:`gather` assembles a
+global tensor.
+
+**Collectives** (:func:`all_gather`, :func:`all_reduce`,
+:func:`replicate`, :func:`split`, a :class:`PartialSum` reduced by
+:func:`device_put`, :func:`microbatches`, :func:`cast_into`) are built from
+``Tensor.to``, ``cat``, slices and sums, so autograd differentiates them.
+Each goes through :func:`record`, which appends ``(kind, bytes, group
+size)`` to the :class:`CollectiveLog` being recorded, with the kinds of
+the reference's HLO parser (``launch/hlo_parse.py:30``) and ``bytes`` the
+collective's output per device as that parser counts it.  The log is ONE
+device's schedule (the mesh's first), as one SPMD program's collective
+instructions are: a collective that every data group or every model
+shard performs at once is logged once.  On a mesh that repeats a device
+the copies cost nothing; the log still counts what a mesh of cards
+needs.  A forward collective inside a rematerialised layer is logged
+again when the layer is recomputed.
+
+**The design.**
+
+* *Data.*  The batch is split over the data axes by its sharding (the
+  fallback of ``choose_pspec`` included: groups that hold the same rows
+  run once, the first of them).  Each data group (the positions that
+  share one index on the data axes) runs the program on its first
+  device, its *home*, where its activations live; a weight replicated
+  over the model axis is read from the home's replica.  The groups run in
+  lockstep, layer by layer, because a MoE layer routes the tokens of all
+  groups together: its capacity and the rank of each assignment within
+  its expert are those of the whole batch, as under GSPMD (an
+  ``all-gather`` of the groups' per-expert counts gives each group its
+  offset; each group then dispatches and combines its own tokens).  The
+  loss sums each group's terms (negative log-likelihood, token count and,
+  for MoE models, the first layer's router statistics) in one
+  ``all-reduce`` over the data axes and forms the global loss from them;
+  one backward pass then runs through every group's graph.
+* *Weights in matmuls* go through :func:`einsum`.  On a model-sharded
+  weight: where the sharded dimension is free in the product (``ff``,
+  ``heads``, ``head`` of a projection, ``ssm_inner``, ``vocab``), each
+  shard computes its slice on its own device and the result is
+  all-gathered (backward: an all-reduce of the input's gradient); where it
+  is contracted, each shard takes its slice of the input and the partial
+  products are all-reduced (backward: an all-gather of the input's
+  gradient).  :func:`embedding` is the same product with one-hot tokens:
+  a vocab-sharded table looks up the tokens in its range and all-reduces.
+* *Regions* (:func:`shard_map`): a block whose weights are all sharded on
+  one logical axis runs per shard and meets the others once.  The MLP
+  (``ff`` on ``wu``/``wg``/``wd``) all-reduces its output (Megatron); MoE
+  experts: with ``experts`` sharded, each shard runs its E/m experts of
+  the dispatch buffer and the outputs are all-gathered (expert
+  parallelism); with ``ff`` sharded, as the MLP.  Attention is head-local
+  where ``wq`` is sharded on ``heads`` and ``wk``/``wv`` on ``kv_heads``
+  (granite at model 4: 6 of 24 and 2 of 8 heads a shard): each shard
+  projects, runs the attention kernel at H/m and Hkv/m heads, and takes
+  its part of ``wo``; the partial outputs are all-reduced.
+* *Gather fallback* (:func:`local`): a model-sharded weight that is not
+  used in a matmul (norms, ``A_log``, ``D_skip``, ``dt_bias``, the conv
+  weights on ``ssm_x``, hymba's fused ``w_in``, whose column split does
+  not follow the z/x/B/C/dt boundaries) is all-gathered on its first use,
+  once per step and data group (:func:`step_scope` keeps it across
+  microbatches and recomputations), on the group's home.
+* *Gradients.*  A shard's gradient lands on its device.  They are reduced
+  over the data groups into the optimizer state's layout (``zero1`` of
+  ``opt_state_axes``: a ``reduce-scatter``, an ``all-reduce`` where no
+  dimension divides), once per microbatch; AdamW runs per optimizer-state
+  shard on its device, after one ``all-reduce`` of the squared gradient
+  norm; the updated master slices, cast to the compute dtype, are
+  all-gathered back into the parameter layout.  With several microbatches
+  the batch is first re-cut so that microbatch i holds the global rows
+  the single-device step gives it (an ``all-to-all`` per batch leaf).
+* *No mesh.*  On plain tensors every primitive calls the code it wraps,
+  unchanged, so the single-device path runs the same operations as
+  before.
+
+**Where the reference's activation constraints go.**  The reference pins
+layouts with ``logical_constraint``; the port calls no such pin, and the
+executor decides each layout where the reference pinned it:
+
+* ``attention.py:164-179`` (q ``heads``, k/v ``kv_heads``, the output
+  replicated): head-local attention keeps q/k/v per shard and all-reduces
+  the output; otherwise the projections' outputs are all-gathered and
+  attention runs on the home at full heads.
+* ``ssm.py:172`` (the fused projection on ``ssm_x``): ``w_in`` is
+  gathered, the projection runs on the home; ``ssm.py:216`` (the output
+  replicated): ``w_out``'s partial products are all-reduced.
+* ``moe.py:72-90`` (the dispatch buffer on experts x batch): the buffer
+  is per data group (its own tokens) and split over the model shards by
+  expert; the outputs are all-gathered.
+* ``transformer.py:106-195, 374`` (the MLP's hidden on ``ff``, the
+  residual stream and logits): the MLP's hidden stays per shard; the
+  residual stream is replicated over the model axis on each group's home;
+  the logits are all-gathered over ``vocab``.  ``seq_sp`` is not executed.
+
+Not executed here: prefill and decode on sharded caches, meshes whose
+data and model axes overlap (the dp-only policy), and other mesh axes.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import itertools
+import threading
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import tree
+
+from . import sharding
+from .sharding import Mesh, NamedSharding, device_scope
+
+
+# ---------------------------------------------------------------------------
+# sharded tensors
+# ---------------------------------------------------------------------------
+
+
+class ShardedTensor:
+    """A global tensor of ``shape`` laid out by ``sharding``: ``shards`` is
+    an object array of ``mesh.devices``' shape holding each position's
+    local tensor on that position's device."""
+
+    def __init__(self, shards: np.ndarray, sharding: NamedSharding,
+                 shape: tuple):
+        self.shards = shards
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards.flat[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def index(self, position: tuple) -> tuple:
+        """The global slices the shard at ``position`` holds."""
+        return self.sharding.index(position, self.shape)
+
+    def pieces(self, prefer: Optional[tuple] = None) -> list:
+        """``[(global slices, tensor)]``, one per distinct slice, the
+        shard at ``prefer`` (or at a position sharing its coordinate on
+        each axis the spec names) first."""
+        positions = list(np.ndindex(self.shards.shape))
+        if prefer is not None:
+            positions.sort(key=lambda p: sum(a != b for a, b in
+                                             zip(p, prefer)))
+        out, seen = [], set()
+        for p in positions:
+            sl = self.index(p)
+            key = tuple((s.start, s.stop) for s in sl)
+            if key not in seen:
+                seen.add(key)
+                out.append((sl, self.shards[p]))
+        return out
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, "
+                f"spec={self.sharding.spec}, mesh={self.mesh.shape})")
+
+
+def is_sharded(t) -> bool:
+    """Whether a tree holds :class:`ShardedTensor` leaves."""
+    return any(isinstance(x, ShardedTensor) for x in tree.leaves(t))
+
+
+def _positions(mesh: Mesh) -> list:
+    return list(np.ndindex(mesh.devices.shape))
+
+
+def assemble(pieces: Sequence, want: tuple, device,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The block ``want`` (global slices) of a tensor held as ``pieces``
+    (``[(global slices, tensor)]``), a new tensor on ``device``."""
+    shape = [w.stop - w.start for w in want]
+    out = None
+    for sl, t in pieces:
+        inter = [(max(a.start, w.start), min(a.stop, w.stop))
+                 for a, w in zip(sl, want)]
+        if any(lo >= hi for lo, hi in inter):
+            continue
+        src = t[tuple(slice(lo - a.start, hi - a.start)
+                      for (lo, hi), a in zip(inter, sl))]
+        src = src.to(device=device, dtype=dtype or t.dtype)
+        if [hi - lo for lo, hi in inter] == shape:
+            return src.clone(memory_format=torch.contiguous_format)
+        if out is None:
+            out = torch.empty(shape, dtype=dtype or t.dtype, device=device)
+        out[tuple(slice(lo - w.start, hi - w.start)
+                  for (lo, hi), w in zip(inter, want))] = src
+    if out is None:
+        raise ValueError(f"no piece covers {want}")
+    return out
+
+
+class PartialSum:
+    """A global tensor of ``shape`` that is the sum of one term per data
+    group, each held as pieces ``[(global slices, tensor)]`` (the
+    gradients of the groups' replicas of one weight).  :func:`device_put`
+    reduces it into a layout: a reduce-scatter where the layout splits it
+    over the data axes, an all-reduce where it does not."""
+
+    def __init__(self, terms: list, shape):
+        self.terms, self.shape = terms, torch.Size(shape)
+
+
+def _put(x, sh: NamedSharding) -> ShardedTensor:
+    shards = np.empty(sh.mesh.devices.shape, dtype=object)
+    for p in _positions(sh.mesh):
+        want = sh.index(p, x.shape)
+        dev = sh.mesh.devices[p]
+        if isinstance(x, PartialSum):     # summed in float32, in order
+            shards[p] = sum(assemble(t, want, dev, torch.float32)
+                            for t in x.terms)
+        elif isinstance(x, ShardedTensor):
+            shards[p] = assemble(x.pieces(prefer=p), want, dev)
+        else:
+            shards[p] = x[want].to(dev, copy=True).contiguous()
+    if isinstance(x, PartialSum):
+        data = Layout(sh.mesh).data_axes
+        split_ = any(set(sharding._entry_axes(e)) & set(data)
+                     for e in sh.spec)
+        piece = x.terms[0][0][1]
+        record("reduce-scatter" if split_ else "all-reduce",
+               _nbytes(sh.shard_shape(x.shape), piece.dtype), len(x.terms))
+    return ShardedTensor(shards, sh, x.shape)
+
+
+def device_put(t, shardings):
+    """Lay ``t`` (a tensor, a :class:`ShardedTensor` to re-lay, a
+    :class:`PartialSum` to reduce, or a tree of them) out by ``shardings``
+    (a :class:`NamedSharding`, or a tree of them of ``t``'s
+    structure)."""
+    if isinstance(shardings, NamedSharding):
+        return _put(t, shardings)
+    return tree.tree_map(_put, t, shardings)
+
+
+def gather(x: ShardedTensor, device) -> torch.Tensor:
+    """The global tensor of ``x`` on ``device``."""
+    return assemble(x.pieces(), tuple(slice(0, n) for n in x.shape), device)
+
+
+# ---------------------------------------------------------------------------
+# the collective log
+# ---------------------------------------------------------------------------
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+class Collective(NamedTuple):
+    kind: str
+    bytes: int          # the collective's output per device
+    group: int          # devices in its group
+
+
+class CollectiveLog(list):
+    """The collectives of one step as one device performs them."""
+
+    def by_kind(self) -> dict:
+        """``{kind: (count, bytes)}``."""
+        out = {}
+        for c in self:
+            n, b = out.get(c.kind, (0, 0))
+            out[c.kind] = (n + 1, b + c.bytes)
+        return out
+
+
+class _State(threading.local):
+    def __init__(self):
+        self.log: Optional[CollectiveLog] = None
+        self.logging = True       # this program's device is the logged one
+        self.memo: Optional[dict] = None
+
+
+_STATE = _State()
+
+
+@contextlib.contextmanager
+def recording(log: CollectiveLog):
+    """Record the collectives run inside into ``log``."""
+    prev = _STATE.log, _STATE.logging
+    _STATE.log, _STATE.logging = log, True
+    try:
+        yield log
+    finally:
+        _STATE.log, _STATE.logging = prev
+
+
+@contextlib.contextmanager
+def step_scope():
+    """Keep the gathered fallback weights (:func:`local`) from their first
+    use to the end of the scope; nested scopes share the outer one."""
+    if _STATE.memo is not None:
+        yield
+        return
+    _STATE.memo = {}
+    try:
+        yield
+    finally:
+        _STATE.memo = None
+
+
+def recompute_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: on a card a checkpointed
+    region is recomputed in autograd's worker thread, whose thread-local
+    state is empty; the second context re-installs there the log, the
+    logging flag and the gather memo of the region's first run."""
+    state = (_STATE.log, _STATE.logging, _STATE.memo)
+
+    @contextlib.contextmanager
+    def restored():
+        prev = (_STATE.log, _STATE.logging, _STATE.memo)
+        _STATE.log, _STATE.logging, _STATE.memo = state
+        try:
+            yield
+        finally:
+            _STATE.log, _STATE.logging, _STATE.memo = prev
+
+    return contextlib.nullcontext(), restored()
+
+
+def _target():
+    return _STATE.log if _STATE.logging else None
+
+
+def record(kind: str, nbytes: int, group: int, log=None) -> None:
+    """Append one collective to the log being recorded (``log``: a target
+    captured earlier, for a backward pass), if this is the logged device's
+    program and the group holds more than one device."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown collective kind {kind!r}")
+    log = _target() if log is None else log
+    if log is not None and group > 1:
+        log.append(Collective(kind, int(nbytes), int(group)))
+
+
+def _nbytes(shape, dtype) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n * (torch.finfo(dtype).bits if dtype.is_floating_point
+                else torch.iinfo(dtype).bits) // 8
+
+
+class _Mark(torch.autograd.Function):
+    """Identity that records a collective when its forward runs
+    (``fwd``) and when its backward runs (``bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd, group):
+        ctx.bwd, ctx.group, ctx.log = bwd, group, _target()
+        if fwd is not None:
+            record(fwd, _nbytes(x.shape, x.dtype), group)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bwd is not None and ctx.log is not None:
+            record(ctx.bwd, _nbytes(g.shape, g.dtype), ctx.group, ctx.log)
+        return g, None, None, None
+
+
+def _mark(x, fwd, bwd, group):
+    if not x.requires_grad:
+        bwd = None
+        if fwd is None:
+            return x
+    return _Mark.apply(x, fwd, bwd, group)
+
+
+def replicate(x, devices) -> list:
+    """``x`` (replicated: every device of the group holds it) handed to
+    each of ``devices``; backward: the shards' gradients all-reduced."""
+    x = _mark(x, None, "all-reduce", len(devices))
+    return [x.to(d) for d in devices]
+
+
+def split(x, dim: int, devices) -> list:
+    """Slice ``j`` of ``x`` along ``dim`` to ``devices[j]``; backward: the
+    slices' gradients all-gathered."""
+    x = _mark(x, None, "all-gather", len(devices))
+    n = x.shape[dim] // len(devices)
+    return [x.narrow(dim, j * n, n).to(d) for j, d in enumerate(devices)]
+
+
+def all_gather(parts: Sequence, dim: int, home) -> torch.Tensor:
+    """The parts joined along ``dim`` on ``home``."""
+    out = torch.cat([p.to(home) for p in parts], dim=dim)
+    return _mark(out, "all-gather", None, len(parts))
+
+
+def all_reduce(parts: Sequence, home) -> torch.Tensor:
+    """The parts' sum on ``home``, in order."""
+    out = parts[0].to(home)
+    for p in parts[1:]:
+        out = out + p.to(home)
+    return _mark(out, "all-reduce", None, len(parts))
+
+
+# ---------------------------------------------------------------------------
+# the execution layout: data groups and model shards
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Group:
+    """One data group: its index on the data axes, its positions along
+    the model axis and their devices (the first is its home)."""
+    index: int
+    positions: list
+    devices: list
+    first: bool = False
+
+    @property
+    def home(self) -> torch.device:
+        return self.devices[0]
+
+    @contextlib.contextmanager
+    def active(self):
+        """Run this group's program: its home current, the collectives
+        logged only for the first group."""
+        prev = _STATE.logging
+        _STATE.logging = prev and self.first
+        try:
+            with device_scope(self.home):
+                yield
+        finally:
+            _STATE.logging = prev
+
+
+class Layout:
+    """The data axes and the model axis of ``mesh``, from the ambient
+    :func:`~.sharding.mesh_context` when it holds ``mesh`` (else the
+    defaults: ``pod``/``data`` and ``model``)."""
+
+    def __init__(self, mesh: Mesh):
+        ctx = sharding._CTX
+        names = mesh.axis_names
+        if ctx.mesh is mesh:
+            self.data_axes, self.model_axis = ctx.data_axes, ctx.model_axis
+        else:
+            self.data_axes = tuple(a for a in ("pod", "data") if a in names)
+            self.model_axis = "model" if "model" in names else None
+        if self.model_axis in self.data_axes:
+            raise ValueError(
+                f"sharded execution needs disjoint data and model axes, got "
+                f"data {self.data_axes} and model {self.model_axis!r}")
+        other = set(names) - set(self.data_axes) - {self.model_axis}
+        if other:
+            raise ValueError(f"sharded execution runs on data and model axes "
+                             f"only; the mesh also has {sorted(other)}")
+        self.mesh = mesh
+        self.m = mesh.shape[self.model_axis] if self.model_axis else 1
+
+    @classmethod
+    def of(cls, t) -> "Layout":
+        leaf = next(x for x in tree.leaves(t) if isinstance(x, ShardedTensor))
+        return cls(leaf.mesh)
+
+    def groups(self) -> List[Group]:
+        names = self.mesh.axis_names
+        out = []
+        for k, idx in enumerate(itertools.product(
+                *(range(self.mesh.shape[a]) for a in self.data_axes))):
+            at = dict(zip(self.data_axes, idx))
+            pos = [tuple(j if a == self.model_axis else at[a] for a in names)
+                   for j in range(self.m)]
+            out.append(Group(k, pos, [self.mesh.devices[p] for p in pos]))
+        return out
+
+    def model_dim(self, x: ShardedTensor) -> Optional[int]:
+        """The dimension ``x`` splits over the model axis (``None``: it is
+        replicated over it, or the axis has one device)."""
+        if self.m == 1:
+            return None
+        for i, e in enumerate(x.sharding.spec):
+            if self.model_axis in sharding._entry_axes(e):
+                if e != self.model_axis:
+                    raise ValueError(f"{x}: the model axis shares a "
+                                     f"dimension with other axes")
+                return i
+        return None
+
+    def runners(self, batch) -> List[Group]:
+        """The groups that run the program: one per distinct slice of the
+        batch (its leaves are split on dim 0 over some data axes), in the
+        order of their rows; the first logs."""
+        leaves = [x for x in tree.leaves(batch)]
+        if not all(isinstance(x, ShardedTensor) and x.mesh is self.mesh
+                   for x in leaves):
+            raise ValueError("a sharded step takes a batch of ShardedTensors "
+                             "on the parameters' mesh")
+        specs = {tuple(x.sharding.spec) + (None,) * (x.ndim - len(
+            x.sharding.spec)) for x in leaves}
+        entry = leaves[0].sharding.spec[0] if leaves[0].sharding.spec \
+            else None
+        if any(s[0] != entry or any(s[1:]) for s in specs) or not set(
+                sharding._entry_axes(entry)) <= set(self.data_axes):
+            raise ValueError(f"the batch must split its leading dimension "
+                             f"over data axes only, got {specs}")
+        axes = sharding._entry_axes(entry)
+        names = self.mesh.axis_names
+        out = [g for g in self.groups()
+               if all(g.positions[0][names.index(a)] == 0
+                      for a in self.data_axes if a not in axes)]
+        out.sort(key=lambda g: leaves[0].index(g.positions[0])[0].start)
+        out[0].first = True
+        return out
+
+
+# ---------------------------------------------------------------------------
+# a data group's view of the weights, and the primitives the model calls
+# ---------------------------------------------------------------------------
+
+
+class Shards:
+    """A data group's model shards of one weight: ``parts[j]`` on
+    ``devices[j]`` is block ``j`` of dimension ``dim``.  ``key`` names it
+    for the gather memo of :func:`local`."""
+
+    def __init__(self, parts: list, devices: list, dim: int, key: tuple):
+        self.parts, self.devices, self.dim, self.key = parts, devices, dim, key
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.parts[0].shape)
+        s[self.dim] *= len(self.parts)
+        return torch.Size(s)
+
+    @property
+    def ndim(self) -> int:
+        return self.parts[0].dim()
+
+    def _child(self, parts, dim, step) -> "Shards":
+        return Shards(parts, self.devices, dim, self.key + (step,))
+
+    def __getitem__(self, i: int) -> "Shards":
+        if not isinstance(i, int) or self.dim == 0:
+            raise TypeError("a sharded weight takes one integer index, "
+                            "on an unsharded leading dimension")
+        return self._child([p[i] for p in self.parts], self.dim - 1, i)
+
+    def unbind(self, dim: int = 0) -> list:
+        if dim != 0:
+            raise ValueError("a sharded weight unbinds its leading dimension")
+        return [self[i] for i in range(self.shape[0])]
+
+    @property
+    def T(self) -> "Shards":
+        if self.ndim != 2:
+            raise ValueError("T takes a 2-D sharded weight")
+        return self._child([p.T for p in self.parts], 1 - self.dim, "T")
+
+
+def views(t, group: Group, layout: Layout):
+    """``t``'s leaves as ``group`` reads them: a :class:`Shards` for a
+    leaf split over the model axis, else the tensor at the group's home
+    position."""
+    def leaf(x):
+        if not isinstance(x, ShardedTensor):
+            return x
+        k = layout.model_dim(x)
+        if k is None:
+            return x.shards[group.positions[0]]
+        return Shards([x.shards[p] for p in group.positions], group.devices,
+                      k, (id(x), group.index))
+
+    return tree.tree_map(leaf, t)
+
+
+def local(w):
+    """A weight used outside a matmul, whole on the group's home: a
+    :class:`Shards` is all-gathered at its first use in the
+    :func:`step_scope` (the gather fallback); a tensor is returned as it
+    is."""
+    if not isinstance(w, Shards):
+        return w
+    memo = _STATE.memo
+    if memo is not None and w.key in memo:
+        return memo[w.key]
+    out = all_gather(w.parts, w.dim, w.devices[0])
+    if memo is not None:
+        memo[w.key] = out
+    return out
+
+
+def shard_map(fn: Callable, args: tuple, weights: tuple, *,
+              split_dims: Optional[tuple] = None, out) -> Any:
+    """``fn(*args, *weights)``, per model shard where a weight is a
+    :class:`Shards`: shard ``j`` gets part ``j`` of each such weight, the
+    arguments (replicated to every shard, or split along
+    ``split_dims[i]``) and the other weights (replicated), on its device;
+    the results are all-gathered along ``out = ("gather", dim)`` or
+    summed (``out = "sum"``).  Without a sharded weight, ``fn`` runs once
+    on what it is given."""
+    sharded = [w for w in weights if isinstance(w, Shards)]
+    if not sharded:
+        return fn(*args, *weights)
+    devices = sharded[0].devices
+    split_dims = split_dims or (None,) * len(args)
+    per_arg = []
+    for a, d in zip(args, split_dims):
+        if not isinstance(a, torch.Tensor):
+            per_arg.append([a] * len(devices))
+        elif d is None:
+            per_arg.append(replicate(a, devices))
+        else:
+            per_arg.append(split(a, d, devices))
+    per_w = [w.parts if isinstance(w, Shards)
+             else replicate(w, devices) if isinstance(w, torch.Tensor)
+             else [w] * len(devices) for w in weights]
+    outs = []
+    for j, dev in enumerate(devices):
+        with device_scope(dev):
+            outs.append(fn(*(a[j] for a in per_arg), *(w[j] for w in per_w)))
+    if out == "sum":
+        return all_reduce(outs, devices[0])
+    return all_gather(outs, out[1], devices[0])
+
+
+def einsum(eq: str, x, w, fn: Callable) -> torch.Tensor:
+    """The product ``eq`` (an einsum equation ``"x,w->out"``) of ``x`` and
+    the weight ``w``, computed by ``fn(x, w)``: on a :class:`Shards` per
+    shard, the output all-gathered where the sharded dimension is free,
+    the input split and the partial products summed where it is
+    contracted."""
+    if not isinstance(w, Shards):
+        return fn(x, w)
+    xs, rest = eq.split(",")
+    ws, os_ = rest.split("->")
+    c = ws[w.dim]
+    sd = xs.index(c) if c in xs else None
+    out = ("gather", os_.index(c)) if c in os_ else "sum"
+    return shard_map(fn, (x,), (w,), split_dims=(sd,), out=out)
+
+
+def embedding(tokens, table) -> torch.Tensor:
+    """``F.embedding(tokens, table)``; a table split over ``vocab`` looks
+    up the tokens in each shard's range (others read zero) and sums the
+    shards, one split over the model dimension is all-gathered."""
+    if not isinstance(table, Shards):
+        return F.embedding(tokens, table)
+    devices = table.devices
+    if table.dim == 1:
+        return all_gather([F.embedding(tokens.to(d), p) for p, d in
+                           zip(table.parts, devices)], tokens.dim(),
+                          devices[0])
+    outs = []
+    for j, (p, d) in enumerate(zip(table.parts, devices)):
+        n = p.shape[0]
+        ids = tokens.to(d) - j * n
+        hit = (ids >= 0) & (ids < n)
+        e = F.embedding(ids.clamp(0, n - 1), p)
+        outs.append(torch.where(hit[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                               device=d)))
+    return all_reduce(outs, devices[0])
+
+
+def head_local(params: dict) -> bool:
+    """Whether an attention block's ``wq`` is split on ``heads`` and
+    ``wk``/``wv`` on ``kv_heads`` (``wo`` then on ``heads``): attention
+    runs per shard on its heads."""
+    ws = [params.get(k) for k in ("wq", "wk", "wv", "wo")]
+    return (all(isinstance(w, Shards) for w in ws)
+            and [w.dim for w in ws] == [1, 1, 1, 0])
+
+
+# ---------------------------------------------------------------------------
+# the pieces of a sharded train step
+# ---------------------------------------------------------------------------
+
+
+def grad_leaves(params, groups: List[Group], layout: Layout) -> tuple:
+    """``params`` with each shard that ``groups`` read replaced by a fresh
+    leaf that requires grad, and per parameter leaf, per group, the
+    ``[(position, leaf)]`` to differentiate."""
+    per_leaf = []
+
+    def leaf(x: ShardedTensor):
+        shards = x.shards.copy()
+        k = layout.model_dim(x)
+        mine = []
+        for g in groups:
+            got = []
+            for pos in (g.positions if k is not None else g.positions[:1]):
+                shards[pos] = x.shards[pos].detach().requires_grad_()
+                got.append((pos, shards[pos]))
+            mine.append(got)
+        per_leaf.append(mine)
+        return ShardedTensor(shards, x.sharding, x.shape)
+
+    return tree.tree_map(leaf, params), per_leaf
+
+
+def partial_grads(loss, params, per_leaf) -> list:
+    """The gradient of ``loss`` with respect to the leaves of
+    :func:`grad_leaves`, one :class:`PartialSum` per parameter leaf (a
+    leaf the loss does not reach gets zeros)."""
+    flat = [t for mine in per_leaf for got in mine for _, t in got]
+    grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+    out = []
+    for x, mine in zip(tree.leaves(params), per_leaf):
+        terms = []
+        for got in mine:
+            pieces = []
+            for pos, t in got:
+                g = next(grads)
+                pieces.append((x.index(pos),
+                               torch.zeros_like(t) if g is None else g))
+            terms.append(pieces)
+        out.append(PartialSum(terms, x.shape))
+    return out
+
+
+def microbatches(batch, n: int, groups: List[Group]) -> list:
+    """``batch`` (ShardedTensors split on dim 0) cut into ``n``
+    microbatches of the same layout: microbatch ``i`` holds global rows
+    ``[i B/n, (i+1) B/n)``, as the single-device step takes them (one
+    all-to-all per leaf)."""
+    out = [[] for _ in range(n)]
+    for x in tree.leaves(batch):
+        B = x.shape[0]
+        shape = (B // n,) + tuple(x.shape[1:])
+        for i in range(n):
+            shards = np.empty(x.shards.shape, dtype=object)
+            for pos in _positions(x.mesh):
+                want = x.sharding.index(pos, shape)
+                rows = slice(i * B // n + want[0].start,
+                             i * B // n + want[0].stop)
+                shards[pos] = assemble(x.pieces(prefer=pos),
+                                       (rows,) + want[1:],
+                                       x.mesh.devices[pos])
+            out[i].append(ShardedTensor(shards, x.sharding, shape))
+        record("all-to-all", _nbytes(x.sharding.shard_shape(x.shape),
+                                     x.dtype), len(groups))
+    return [tree.unflatten(batch, leaves) for leaves in out]
+
+
+def global_norm(grads, home) -> torch.Tensor:
+    """The l2 norm of the global tensors of ``grads`` (ShardedTensors), in
+    float32 on ``home``: each distinct shard's squares summed where it
+    lies, then one all-reduce."""
+    total = None
+    for x in tree.leaves(grads):
+        for _, t in x.pieces():
+            s = torch.sum(torch.square(t.float())).to(home)
+            total = s if total is None else total + s
+    record("all-reduce", 4, next(iter(tree.leaves(grads))).mesh.size)
+    return torch.sqrt(total)
+
+
+def cast_into(x: ShardedTensor, sh: NamedSharding,
+              dtype: torch.dtype) -> ShardedTensor:
+    """``x`` cast to ``dtype`` shard by shard, then laid out by ``sh``
+    (an all-gather where ``sh`` holds more of a dimension than ``x``)."""
+    cast = np.empty(x.shards.shape, dtype=object)
+    for pos in _positions(x.mesh):
+        cast[pos] = x.shards[pos].to(dtype, copy=True)
+    out = _put(ShardedTensor(cast, x.sharding, x.shape), sh)
+    k = 1
+    for a, b in zip(x.sharding.parts(x.ndim), sh.parts(x.ndim)):
+        k *= a // b
+    record("all-gather", _nbytes(sh.shard_shape(x.shape), dtype), k)
+    return out

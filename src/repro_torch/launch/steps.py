@@ -100,3 +100,51 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
                 tcfg: TrainConfig = None) -> Dict[str, Any]:
     _, specs = make_step(cfg, shape, tcfg or TrainConfig())
     return specs
+
+
+def cache_pspecs(cfg: ModelConfig, mesh, global_batch: int = 0):
+    """PartitionSpecs for the stacked decode caches (``LayerCaches`` of
+    ``KVCache``/``SSMCache`` specs).
+
+    The leading axis is LAYERS, never sharded; the batch goes over (pod,
+    data) with progressive fallback when it does not divide (long_500k has
+    batch 1); kv/ssm heads over model with head_dim fallback (the weights'
+    divisibility rule).
+    """
+    from repro_torch.distributed.sharding import PartitionSpec as P
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMCache
+    from repro_torch.models.transformer import LayerCaches
+
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    while data_axes and global_batch:
+        size = 1
+        for a in data_axes:
+            size *= mesh.shape[a]
+        if global_batch % size == 0:
+            break
+        data_axes = data_axes[1:]
+    d = (data_axes if len(data_axes) > 1 else
+         (data_axes[0] if data_axes else None))
+    m = mesh.shape["model"] if "model" in mesh.axis_names else 1
+
+    attn = ssm = None
+    if cfg.mixer in ("attn", "hybrid"):
+        if cfg.num_kv_heads % m == 0:
+            kv = P(None, d, "model", None, None)
+        elif cfg.hd % m == 0 and not cfg.kv_replicate:
+            kv = P(None, d, None, None, "model")
+        else:
+            kv = P(None, d, None, None, None)
+        attn = KVCache(k=kv, v=kv, pos=P(None))
+    if cfg.mixer in ("ssm", "hybrid"):
+        conv_dim = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        conv = P(None, d, None, "model" if conv_dim % m == 0 else None)
+        if cfg.ssm_heads % m == 0:
+            state = P(None, d, "model", None, None)
+        elif cfg.ssm_head_dim % m == 0:
+            state = P(None, d, None, "model", None)
+        else:
+            state = P(None, d, None, None, None)
+        ssm = SSMCache(conv=conv, state=state)
+    return LayerCaches(attn, ssm)

@@ -15,8 +15,10 @@ The decode path is single-token attention against a (possibly rolling)
 KV cache; O(L) work, no chunking.  GQA is computed without repeating K/V:
 q is reshaped to (B, Hkv, rep, L, D) and contracted group-wise.
 
-The reference pins logical shardings (``logical_constraint``) on the
-activations; on one card they are the identity and are dropped here.
+On sharded weights (``repro_torch.distributed.spmd``) the projections go
+through ``spmd.einsum``; where ``wq`` is split on ``heads`` and ``wk``/``wv``
+on ``kv_heads``, attention runs per model shard on its heads (the kernel
+at H/m and Hkv/m heads) and the shards' ``wo`` products are summed.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.kernels.flash_attention import attention_trainable
 
 from .layers import P, apply_rope, rms_norm, rope_freqs
@@ -128,12 +131,26 @@ def chunked_mha(q, k, v, *, causal: bool, window: Optional[int],
 def attention_forward(params, x, cfg: ModelConfig, positions, *,
                       use_kernel: bool = False):
     """Full-sequence attention (train / prefill).  x: (B, L, D)."""
-    q = _proj_heads(x, params["wq"])
-    k = _proj_heads(x, params["wk"])
-    v = _proj_heads(x, params["wv"])
+    if spmd.head_local(params):
+        def shard(x, positions, qn, kn, wq, wk, wv, wo):
+            return _attention({"wq": wq, "wk": wk, "wv": wv, "wo": wo,
+                               "q_norm": qn, "k_norm": kn}, x, cfg,
+                              positions, use_kernel)
+
+        return spmd.shard_map(
+            shard, (x, positions, spmd.local(params.get("q_norm")),
+                    spmd.local(params.get("k_norm"))),
+            tuple(params[k] for k in ("wq", "wk", "wv", "wo")), out="sum")
+    return _attention(params, x, cfg, positions, use_kernel)
+
+
+def _attention(params, x, cfg: ModelConfig, positions, use_kernel: bool):
+    q = spmd.einsum("bld,dhk->blhk", x, params["wq"], _proj_heads)
+    k = spmd.einsum("bld,dhk->blhk", x, params["wk"], _proj_heads)
+    v = spmd.einsum("bld,dhk->blhk", x, params["wv"], _proj_heads)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, spmd.local(params["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, spmd.local(params["k_norm"]), cfg.norm_eps)
     cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, cos[:, None], sin[:, None])
     k = apply_rope(k, cos[:, None], sin[:, None])
@@ -143,7 +160,8 @@ def attention_forward(params, x, cfg: ModelConfig, positions, *,
         o = attention_trainable(q, k, v, causal, cfg.window)
     else:
         o = chunked_mha(q, k, v, causal=causal, window=cfg.window)
-    return _out_proj(o.transpose(1, 2), params["wo"])
+    return spmd.einsum("blhk,hkd->bld", o.transpose(1, 2), params["wo"],
+                       _out_proj)
 
 
 def attention_decode(params, x, cfg: ModelConfig, cache: KVCache):

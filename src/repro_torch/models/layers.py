@@ -2,9 +2,11 @@
 
 Parameters are plain nested dicts of tensors with the reference's names
 and layouts.  Every module defines its parameters once as a ``spec``
-(shape + logical axes + init) from which the initialised tree is built.
-The logical axes are kept for parity with the reference's specs; the port
-runs on one card and shards nothing.
+(shape + logical axes + init) from which both the initialised tree and the
+logical-axes tree are derived, so the sharding metadata cannot drift from
+the parameters: ``params_axes`` feeds the rules of
+``repro_torch.distributed.sharding``, whose shardings the executor of
+``repro_torch.distributed.spmd`` runs.
 """
 from __future__ import annotations
 
@@ -53,6 +55,14 @@ def init_params(generator: torch.Generator, spec: dict, dtype,
         return (w * scale).to(dtype)
 
     return map_spec(mk, spec)
+
+
+def params_axes(spec: dict) -> dict:
+    return map_spec(lambda p: p.axes, spec)
+
+
+def params_shapes(spec: dict) -> dict:
+    return map_spec(lambda p: p.shape, spec)
 
 
 def stack_specs(spec: dict, num: int) -> dict:

@@ -16,9 +16,11 @@ execution paths for the full sequence:
   version.
 
 Layer structure follows mamba2: in_proj -> [z | x | B | C | dt], short
-depthwise conv on (x, B, C), SSD scan, gated RMSNorm, out_proj.  The
-reference's ``logical_constraint`` sharding pins are the identity on one
-card and are dropped here.
+depthwise conv on (x, B, C), SSD scan, gated RMSNorm, out_proj.  On
+sharded weights (``repro_torch.distributed.spmd``) the split projections
+and ``w_out`` go through ``spmd.einsum``; the fused ``w_in``, the conv
+weights, ``A_log``, ``D_skip``, ``dt_bias`` and ``gate_norm`` are gathered
+(``spmd.local``) and the scan runs at full width on the data group's home.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.kernels.ssd import ssd_scan_chunked, ssd_trainable
 
 from .layers import P, rms_norm
@@ -90,21 +93,21 @@ def _project_streams(params, x, cfg: ModelConfig):
     """in_proj + causal conv + silu -> (z, x, B, C, dt) streams."""
     din = cfg.ssm_inner
     gs = cfg.ssm_groups * cfg.ssm_state
+    w = {k: spmd.local(v) for k, v in params.items()
+         if k.startswith("conv") or k == "w_in"}
     if cfg.ssm_fused_proj:
-        zxbcdt = x @ params["w_in"]
+        zxbcdt = x @ w["w_in"]
         z, xs, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
         xbc = torch.cat([xs, Bm, Cm], dim=-1)
-        xbc = F.silu(_causal_conv(xbc, params["conv_w"], params["conv_b"]))
+        xbc = F.silu(_causal_conv(xbc, w["conv_w"], w["conv_b"]))
         xs, Bm, Cm = torch.split(xbc, [din, gs, gs], dim=-1)
         return z, xs, Bm, Cm, dt
-    z = x @ params["w_z"]
-    xs = x @ params["w_x"]
-    Bm = x @ params["w_B"]
-    Cm = x @ params["w_C"]
-    dt = x @ params["w_dt"]
-    xs = F.silu(_causal_conv(xs, params["conv_x_w"], params["conv_x_b"]))
-    Bm = F.silu(_causal_conv(Bm, params["conv_B_w"], params["conv_B_b"]))
-    Cm = F.silu(_causal_conv(Cm, params["conv_C_w"], params["conv_C_b"]))
+    z, xs, Bm, Cm, dt = (spmd.einsum("bld,dk->blk", x, params[k],
+                                     torch.matmul)
+                         for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+    xs = F.silu(_causal_conv(xs, w["conv_x_w"], w["conv_x_b"]))
+    Bm = F.silu(_causal_conv(Bm, w["conv_B_w"], w["conv_B_b"]))
+    Cm = F.silu(_causal_conv(Cm, w["conv_C_w"], w["conv_C_b"]))
     return z, xs, Bm, Cm, dt
 
 
@@ -117,18 +120,18 @@ def ssm_forward(params, x, cfg: ModelConfig, *, use_kernel: bool = False):
     xh = xs.reshape(Bb, L, H, Pd)
     Bg = Bm.reshape(Bb, L, cfg.ssm_groups, cfg.ssm_state)
     Cg = Cm.reshape(Bb, L, cfg.ssm_groups, cfg.ssm_state)
-    dth = F.softplus(dt + params["dt_bias"][None, None])
-    A = -torch.exp(params["A_log"].float())
+    dth = F.softplus(dt + spmd.local(params["dt_bias"])[None, None])
+    A = -torch.exp(spmd.local(params["A_log"]).float())
+    D_skip = spmd.local(params["D_skip"])
 
     if use_kernel:
-        y = ssd_trainable(xh, dth, A, Bg, Cg, params["D_skip"],
-                          cfg.ssm_chunk)
+        y = ssd_trainable(xh, dth, A, Bg, Cg, D_skip, cfg.ssm_chunk)
     else:
-        y = ssd_scan_chunked(xh, dth, A, Bg, Cg, params["D_skip"],
-                             cfg.ssm_chunk)
+        y = ssd_scan_chunked(xh, dth, A, Bg, Cg, D_skip, cfg.ssm_chunk)
     y = y.reshape(Bb, L, cfg.ssm_inner)
-    y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    return y @ params["w_out"]
+    y = rms_norm(y * F.silu(z), spmd.local(params["gate_norm"]),
+                 cfg.norm_eps)
+    return spmd.einsum("blk,kd->bld", y, params["w_out"], torch.matmul)
 
 
 def preconv_streams(params, x, cfg: ModelConfig):

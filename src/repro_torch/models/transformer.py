@@ -8,7 +8,7 @@ with ``torch.utils.checkpoint``: ``remat`` checkpoints each layer and
 ``remat_group`` adds a checkpoint around each group of layers (nested).
 
 Public entry points:
-  init                        parameter tree
+  init / axes / shapes        parameter tree + logical sharding metadata
   train_loss                  tokens/embeddings -> scalar loss
                               (differentiable)
   prefill                     full-sequence forward -> logits + caches
@@ -24,13 +24,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import spmd
 
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (
-    P, activation, apply_rope, init_params, layer_slice, rms_norm,
-    rope_freqs, stack_specs,
+    P, activation, apply_rope, init_params, layer_slice, params_axes,
+    params_shapes, rms_norm, rope_freqs, stack_specs,
 )
 
 
@@ -87,29 +88,43 @@ def init(cfg: ModelConfig, generator: torch.Generator, *,
     return init_params(generator, model_spec(cfg), _dtype(cfg), device)
 
 
+def axes(cfg: ModelConfig) -> dict:
+    return params_axes(model_spec(cfg))
+
+
+def shapes(cfg: ModelConfig) -> dict:
+    return params_shapes(model_spec(cfg))
+
+
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
 
-def _apply_mlp(p, x, cfg):
+def _mlp(x, wu, wg, wd, cfg):
     act = activation(cfg.act)
-    h = x @ p["wu"]
+    h = x @ wu
     if cfg.mlp_type == "gated":
-        h = act(x @ p["wg"]) * h
+        h = act(x @ wg) * h
     else:
         h = act(h)
-    return h @ p["wd"]
+    return h @ wd
+
+
+def _apply_mlp(p, x, cfg):
+    # split on ff: each model shard runs its slice and the outputs sum
+    return spmd.shard_map(functools.partial(_mlp, cfg=cfg), (x,),
+                          (p["wu"], p.get("wg"), p["wd"]), out="sum")
 
 
 def _embed_in(params, batch, cfg: ModelConfig):
     if cfg.input_mode == "embeddings":
         return batch["embeddings"].to(_dtype(cfg))
-    return F.embedding(batch["tokens"], params["embed"])
+    return spmd.embedding(batch["tokens"], params["embed"])
 
 
 def _lm_logits(params, x, cfg: ModelConfig):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head
+    logits = spmd.einsum("bld,dv->blv", x, head, torch.matmul)
     if cfg.padded_vocab != cfg.vocab_size:
         # physical vocab padding: mask the pad columns
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
@@ -132,7 +147,7 @@ def _ffn(p, x, cfg):
     return x
 
 
-def _layer_forward(p, x, cfg: ModelConfig, positions, use_kernel):
+def _mixer_residual(p, x, cfg: ModelConfig, positions, use_kernel):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mixer == "attn":
         mix = attn_mod.attention_forward(p["attn"], h, cfg, positions,
@@ -144,7 +159,35 @@ def _layer_forward(p, x, cfg: ModelConfig, positions, use_kernel):
                                        use_kernel=use_kernel)
         s = ssm_mod.ssm_forward(p["ssm"], h, cfg, use_kernel=use_kernel)
         mix = _mix(p, a, s, cfg)
-    return _ffn(p, x + mix, cfg)
+    return x + mix
+
+
+def _layer_forward(p, x, cfg: ModelConfig, positions, use_kernel):
+    return _ffn(p, _mixer_residual(p, x, cfg, positions, use_kernel), cfg)
+
+
+def _layer_forward_groups(ps, xs, *, groups, cfg: ModelConfig, positions,
+                          use_kernel):
+    """One layer for every data group (``ps``/``xs``/``positions``: one
+    each per group), in lockstep: a MoE layer routes the groups' tokens
+    together (``moe.moe_forward_groups``)."""
+    ys = []
+    for g, p, x, pos in zip(groups, ps, xs, positions):
+        with g.active():
+            ys.append(_mixer_residual(p, x, cfg, pos, use_kernel))
+    if "moe" not in ps[0]:
+        out = []
+        for g, p, y in zip(groups, ps, ys):
+            with g.active():
+                out.append(_ffn(p, y, cfg))
+        return out
+    hs = []
+    for g, p, y in zip(groups, ps, ys):
+        with g.active():
+            hs.append(rms_norm(y, p["ln2"], cfg.norm_eps))
+    outs = moe_mod.moe_forward_groups([p["moe"] for p in ps], hs, cfg,
+                                      groups)
+    return [y + o for y, o in zip(ys, outs)]
 
 
 def _unstack(tree: dict, n: int) -> list:
@@ -158,9 +201,11 @@ def _unstack(tree: dict, n: int) -> list:
 
 
 def _checkpointed(fn, *args):
-    # the layers draw no random numbers: no RNG state to restore
+    # the layers draw no random numbers: no RNG state to restore; the
+    # recomputation sees the sharded executor's state of the first run
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False,
+                      context_fn=spmd.recompute_context)
 
 
 def _grouped(cfg: ModelConfig) -> bool:
@@ -171,13 +216,19 @@ def _grouped(cfg: ModelConfig) -> bool:
 
 def _stack_forward(params, x, cfg: ModelConfig, positions, *,
                    use_kernel=False):
-    """The layers, then the final norm.  ``remat`` checkpoints each layer;
-    ``remat_group = g`` (with ``g`` dividing and below the depth, and the
-    layers not unrolled, as in the reference) also checkpoints each group
-    of ``g`` layers, nested."""
+    """The layers, then the final norm."""
     layers = _unstack(params["layers"], cfg.num_layers)
     step = functools.partial(_layer_forward, cfg=cfg, positions=positions,
                              use_kernel=use_kernel)
+    x = _run_stack(step, layers, x, cfg)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _run_stack(step, layers: list, x, cfg: ModelConfig):
+    """``x`` through ``step(layer, x)`` for each layer.  ``remat``
+    checkpoints each layer; ``remat_group = g`` (with ``g`` dividing and
+    below the depth, and the layers not unrolled, as in the reference)
+    also checkpoints each group of ``g`` layers, nested."""
     if cfg.remat:
         step = functools.partial(_checkpointed, step)
 
@@ -192,7 +243,7 @@ def _stack_forward(params, x, cfg: ModelConfig, positions, *,
             x = _checkpointed(run, x, lo, lo + cfg.remat_group)
     else:
         x = run(x, 0, n)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x
 
 
 def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
@@ -207,7 +258,14 @@ def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
     forwards through the CUDA kernels (``attention_trainable``,
     ``ssd_trainable``); their backward passes are autograd through the
     plain versions, as in the reference.
+
+    On ``ShardedTensor`` params and batch (``repro_torch.distributed.spmd``)
+    the loss is that of the whole batch, computed by the data groups in
+    lockstep, on the mesh's first device.
     """
+    if spmd.is_sharded(params):
+        return _sharded_train_loss(params, batch, cfg, use_kernel,
+                                   moe_aux_weight)
     x = _embed_in(params, batch, cfg)
     L = x.shape[1]
     positions = torch.arange(L, dtype=torch.float32, device=x.device)
@@ -225,6 +283,58 @@ def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
         aux = moe_mod.moe_aux_loss(
             layer_slice(params["layers"]["moe"], 0), x, cfg)
         loss = loss + moe_aux_weight * aux
+    return loss
+
+
+def _sharded_train_loss(params, batch, cfg: ModelConfig, use_kernel: bool,
+                        moe_aux_weight: float):
+    """``train_loss`` on sharded params and batch (the design is in
+    ``repro_torch.distributed.spmd``).  Each data group's terms, the summed
+    negative log-likelihood and token count (and, for MoE models, the
+    first layer's top-1 counts and summed router probabilities over the
+    embedded input), are all-reduced over the data axes; the loss is the
+    whole batch's, as ``train_loss`` forms it."""
+    layout = spmd.Layout.of(params)
+    groups = layout.runners(batch)
+    with spmd.step_scope():
+        ps = [spmd.views(params, g, layout) for g in groups]
+        bs = [spmd.views(batch, g, layout) for g in groups]
+        xs, positions = [], []
+        for g, p, b in zip(groups, ps, bs):
+            with g.active():
+                xs.append(_embed_in(p, b, cfg))
+                positions.append(torch.arange(xs[-1].shape[1],
+                                              dtype=torch.float32,
+                                              device=g.home))
+        layers = list(zip(*(_unstack(p["layers"], cfg.num_layers)
+                            for p in ps)))
+        step = functools.partial(_layer_forward_groups, groups=groups,
+                                 cfg=cfg, positions=positions,
+                                 use_kernel=use_kernel)
+        hs = _run_stack(step, layers, xs, cfg)
+        terms = []
+        for g, p, b, h, x in zip(groups, ps, bs, hs, xs):
+            with g.active():
+                logits = _lm_logits(p, rms_norm(h, p["final_norm"],
+                                                cfg.norm_eps), cfg)
+                labels = b["labels"].long()
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                ll = logp.gather(-1, labels[..., None])[..., 0]
+                mask = b.get("loss_mask")
+                mask = torch.ones_like(ll) if mask is None else mask.to(
+                    ll.dtype)
+                t = [-(ll * mask).sum()[None], mask.sum()[None]]
+                if cfg.is_moe:
+                    t += moe_mod.router_sums(
+                        layer_slice(p["layers"]["moe"], 0), x, cfg)
+                terms.append(torch.cat(t))
+        total = spmd.all_reduce(terms, groups[0].home)
+    loss = total[0] / torch.clamp(total[1], min=1.0)
+    if cfg.is_moe:
+        E = cfg.moe_experts
+        tokens = sum(x.shape[0] * x.shape[1] for x in xs)
+        ones, probs = total[2:2 + E] / tokens, total[2 + E:] / tokens
+        loss = loss + moe_aux_weight * (E * torch.sum(ones * probs))
     return loss
 
 

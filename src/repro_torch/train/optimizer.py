@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.config import TrainConfig
+from repro_torch.distributed.sharding import map_axes
 
 
 class AdamWState(NamedTuple):
@@ -72,15 +73,30 @@ def adamw_update(grads, state: AdamWState, cfg: TrainConfig,
     gnorm = global_norm(grads)
     step = state.step + 1
     lr = schedule(state.step)
+    adamw_apply(tree.leaves(grads), tree.leaves(state.m),
+                tree.leaves(state.v), tree.leaves(state.master), gnorm, step,
+                lr, cfg)
+    new_params = tree.tree_map(lambda x: x.to(compute_dtype, copy=True),
+                               state.master)
+    return new_params, AdamWState(step, state.m, state.v, state.master), {
+        "grad_norm": gnorm, "lr": lr}
+
+
+def adamw_apply(grads: list, m: list, v: list, p: list, gnorm, step, lr,
+                cfg: TrainConfig) -> None:
+    """The AdamW arithmetic on lists of gradients and of fp32 moments and
+    master weights (updated in place), given the whole gradient's norm
+    ``gnorm``, the step after the update and its learning rate: the
+    clip scale, the moments, the bias-corrected update with weight
+    decay.  A sharded step calls it once per optimizer-state shard."""
     b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    g = [x.float() for x in tree.leaves(grads)]
+    g = [x.float() for x in grads]
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         # a new list: an fp32 gradient is its own .float()
         g = torch._foreach_mul(g, scale)
-    m, v, p = (tree.leaves(t) for t in (state.m, state.v, state.master))
     torch._foreach_mul_(m, b1)
     torch._foreach_add_(m, g, alpha=1 - b1)
     torch._foreach_mul_(v, b2)
@@ -89,10 +105,6 @@ def adamw_update(grads, state: AdamWState, cfg: TrainConfig,
     for mi, vi, pi in zip(m, v, p):   # leaf by leaf: temporaries of one leaf
         upd = (mi / bc1).div_((vi / bc2).sqrt_().add_(eps))
         pi.sub_(upd.add_(pi, alpha=wd).mul_(lr))
-    new_params = tree.tree_map(lambda x: x.to(compute_dtype, copy=True),
-                               state.master)
-    return new_params, AdamWState(step, state.m, state.v, state.master), {
-        "grad_norm": gnorm, "lr": lr}
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +115,9 @@ def zero1_logical(axes: tuple, shape: tuple, data_size: int) -> tuple:
     """Replace the first data-shardable unsharded axis with 'zero1'.
 
     An axis is eligible when its logical name would not be model-sharded
-    (None or 'embed') and its size divides the data-parallel degree.  The
-    port trains on one card and shards nothing; this is the reference's
-    rule, kept for the multi-device layouts (ROADMAP.md, queue 1.4).
+    (None or 'embed') and its size divides the data-parallel degree;
+    ``repro_torch.distributed.sharding.choose_pspec`` maps 'zero1' onto the
+    data axes.
     """
     out = list(axes)
     for i, (name, dim) in enumerate(zip(axes, shape)):
@@ -114,3 +126,13 @@ def zero1_logical(axes: tuple, shape: tuple, data_size: int) -> tuple:
             out[i] = "zero1"
             return tuple(out)
     return tuple(out)
+
+
+def opt_state_axes(param_axes, param_shapes, data_size: int,
+                   zero1: bool = True) -> AdamWState:
+    """Logical axes trees for (m, v, master) given the params' axes."""
+    def leaf(ax, shp):
+        return zero1_logical(ax, shp, data_size) if zero1 else ax
+
+    zax = map_axes(leaf, param_axes, param_shapes)
+    return AdamWState(step=(), m=zax, v=zax, master=zax)

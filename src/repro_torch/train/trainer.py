@@ -3,8 +3,12 @@ preemption handling.
 
 ``make_train_step`` builds the step for a model config: loss -> gradients
 (per-layer remat in the model stack) -> accumulation over microbatches in
-float32 -> AdamW.  The reference jits the same step and, under a mesh,
-shards it; the port runs it eagerly on one device.
+float32 -> AdamW.  The port runs it eagerly.  Given params, optimizer state
+and batch laid out by ``make_shardings`` and the batch's spec
+(``repro_torch.distributed.spmd.device_put``) under ``mesh_context(mesh)``,
+it runs sharded (the reference jits it with those shardings): TP over
+"model", ZeRO-1 optimizer state over "data" (``TrainConfig.zero1``), expert
+parallelism; the design is in ``repro_torch.distributed.spmd``.
 
 Fault tolerance: ``Trainer.run`` checkpoints every ``checkpoint_every``
 steps, at the last step and on SIGTERM, resumes from the newest
@@ -13,21 +17,28 @@ restart replays the same batches.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import signal
 import time
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import tree
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.core.estimator import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.models import transformer
 
 from . import checkpoint as ckpt
-from .optimizer import AdamWState, adamw_init, adamw_update, cosine_schedule
+from .optimizer import (
+    AdamWState, adamw_apply, adamw_init, adamw_update, cosine_schedule,
+    opt_state_axes, zero1_logical,
+)
 
 
 def value_and_grad(loss_fn: Callable, params, batch) -> tuple:
@@ -42,6 +53,110 @@ def value_and_grad(loss_fn: Callable, params, batch) -> tuple:
                                 for p, g in zip(leaves, grads))
 
 
+def _zero2_constrain(grads, cfg: ModelConfig):
+    """ZeRO-2-style grad sharding: the gradients laid out as the optimizer
+    state (zero1), so that each microbatch's gradients are reduce-scattered
+    over the data axes instead of held whole in float32 on every device.
+    The identity without an active mesh."""
+    if shd.active_mesh() is None:
+        return grads
+    data_size = shd.data_parallel_size()
+
+    def leaf(ax, g):
+        return shd.logical_constraint(g, *zero1_logical(ax, g.shape,
+                                                        data_size))
+
+    return shd.map_axes(leaf, transformer.axes(cfg), grads)
+
+
+def make_shardings(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+    """NamedShardings for (params, opt_state) under ``mesh``: params TP over
+    "model" by the logical rules, the optimizer state also ZeRO-1 over the
+    data axes when ``tcfg.zero1``."""
+    axes = transformer.axes(cfg)
+    shapes = transformer.shapes(cfg)
+    p_shard = shd.tree_shardings(axes, shapes, mesh)
+    data_size = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            data_size *= mesh.shape[a]
+    o_axes = opt_state_axes(axes, shapes, data_size, zero1=tcfg.zero1)
+    o_shard = AdamWState(
+        step=shd.NamedSharding(mesh, shd.PartitionSpec()),
+        m=shd.tree_shardings(o_axes.m, shapes, mesh),
+        v=shd.tree_shardings(o_axes.v, shapes, mesh),
+        master=shd.tree_shardings(o_axes.master, shapes, mesh))
+    return p_shard, o_shard
+
+
+def _sharded_step(params, opt: AdamWState, batch, *, cfg, tcfg, loss_fn,
+                  schedule, compute_dtype):
+    """The step on ShardedTensors (``repro_torch.distributed.spmd``): returns
+    params and optimizer state in the layouts they came in, the metrics as
+    tensors on the mesh's first device, and the step's collectives under
+    ``"collectives"``."""
+    layout = spmd.Layout.of(params)
+    mesh = layout.mesh
+    if shd.active_mesh() not in (None, mesh):
+        raise ValueError("a sharded step runs under its own mesh's "
+                         "mesh_context")
+    ctx = (shd.mesh_context(mesh) if shd.active_mesh() is None
+           else contextlib.nullcontext())
+    log = spmd.CollectiveLog()
+    with ctx, spmd.recording(log), spmd.step_scope():
+        groups = layout.runners(batch)
+        home = groups[0].home
+        leaves, per_leaf = spmd.grad_leaves(params, groups, layout)
+        n = tcfg.microbatches
+        loss, acc = None, None
+        for mb in ([batch] if n == 1 else
+                   spmd.microbatches(batch, n, groups)):
+            mb_loss = loss_fn(leaves, mb)
+            g = _zero2_constrain(tree.unflatten(params, spmd.partial_grads(
+                mb_loss, leaves, per_leaf)), cfg)
+            mb_loss = mb_loss.detach()
+            if acc is None:
+                loss, acc = mb_loss, g
+            else:
+                loss = loss + mb_loss
+                torch._foreach_add_(_shards(acc), _shards(g))
+            del g
+        if n > 1:
+            inv = 1.0 / n
+            loss = loss * inv
+            torch._foreach_mul_(_shards(acc), inv)
+        for got, m in zip(tree.leaves(acc), tree.leaves(opt.m)):
+            if got.sharding.spec != m.sharding.spec:
+                raise ValueError(
+                    f"the optimizer state's layout {m.sharding.spec} is not "
+                    f"its zero1 layout {got.sharding.spec} (make_shardings)")
+        gnorm = spmd.global_norm(acc, home)
+        step = np.empty(opt.step.shards.shape, dtype=object)
+        for pos in np.ndindex(step.shape):
+            dev = mesh.devices[pos]
+            s = opt.step.shards[pos]
+            step[pos] = s + 1
+            adamw_apply([x.shards[pos] for x in tree.leaves(acc)],
+                        *([x.shards[pos] for x in tree.leaves(t)]
+                          for t in (opt.m, opt.v, opt.master)),
+                        gnorm.to(dev), step[pos], schedule(s), tcfg)
+        del acc
+        new_params = tree.tree_map(
+            lambda master, p: spmd.cast_into(master, p.sharding,
+                                             compute_dtype),
+            opt.master, params)
+    lr = schedule(opt.step.shards.flat[0]).to(home)
+    new_opt = AdamWState(
+        spmd.ShardedTensor(step, opt.step.sharding, opt.step.shape),
+        opt.m, opt.v, opt.master)
+    return new_params, new_opt, {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                                 "collectives": log}
+
+
+def _shards(t) -> list:
+    return [s for x in tree.leaves(t) for s in x.shards.flat]
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     loss_fn: Optional[Callable] = None):
     """Returns ``step(params, opt, batch) -> (params, opt, metrics)``.
@@ -51,6 +166,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     its leading axis and the microbatches' gradients are summed in float32
     buffers, then averaged, as the reference's accumulation scan does.
     ``opt`` is updated in place (see ``optimizer.adamw_update``).
+
+    On ShardedTensors (see the module docstring) the step runs sharded and
+    returns params and optimizer state in the same layouts, with the loss,
+    grad_norm and lr on the mesh's first device and the step's
+    ``CollectiveLog`` under ``metrics["collectives"]``.  ``loss_fn`` must
+    then take sharded params and batch, as ``transformer.train_loss``
+    does.
     """
     schedule = cosine_schedule(tcfg)
     loss_fn = loss_fn or functools.partial(transformer.train_loss, cfg=cfg)
@@ -60,6 +182,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     grads_of = functools.partial(value_and_grad, loss_fn)
 
     def step(params, opt: AdamWState, batch):
+        if spmd.is_sharded(params):
+            return _sharded_step(params, opt, batch, cfg=cfg, tcfg=tcfg,
+                                 loss_fn=loss_fn, schedule=schedule,
+                                 compute_dtype=compute_dtype)
         n = tcfg.microbatches
         if n > 1:
             parts = [x.reshape((n, -1) + tuple(x.shape[1:])).unbind(0)
