@@ -194,6 +194,25 @@ Phases, each of which fails the run on any miss:
                  AdamW's eps band); the same for granite-moe-3b after 5h
                  on a 2 x 4 mesh (expert parallelism, 10 experts a shard;
                  head-local attention, 6/2 heads a shard);
+5e'. sharded serving -- ``ServeEngine.generate`` on ShardedTensor params
+                 under their mesh's ``mesh_context`` (sharded prefill and
+                 decode on ``cache_pspecs``'s layouts): hymba-1.5b at full
+                 width and depth on a 2 x 2 (data, model) mesh of cuda:0
+                 (kv split over ``hd``, the SSM state over heads, the conv
+                 tail over channels), the serving cell's 16 requests in
+                 waves of 8; exact ``mma`` launches (2 data groups x 32
+                 layers = 64 attention + 64 SSD a wave), finite bf16
+                 logits, prefill ms a wave, decode ms a step and new
+                 tokens/s beside the single-device engine's, the greedy
+                 tokens' agreement with it, the collective log of a
+                 prefill wave and a decode step, peak memory; first a
+                 float32 gate at 2 layers, 2 x 512 tokens: prefill logits
+                 and every cache shard, then 4 decode steps, against the
+                 single-device run at rtol 2e-4 / atol 2e-4 with the same
+                 greedy tokens; the same for granite-moe-3b after 5h on a
+                 2 x 4 mesh (head-local attention, kv over heads, expert
+                 parallelism: 2 x 4 x 32 = 256 attention launches a wave
+                 at (4, 6, 2, 2048, 2048, 64));
 5f. MoE serving -- ``ServeEngine.generate`` on granite-moe-3b-a800m (40
                  experts, top 8) at full width and depth in bfloat16, the
                  hymba cell's shape: 32 ``mma`` attention launches per
@@ -220,6 +239,12 @@ Phases, each of which fails the run on any miss:
                  bfloat16 ``ServeEngine`` wave of 2 x 2048 prompts and 4
                  new tokens, every attention (D = 64, 80, 128) and SSD
                  (S = 128) launch of the ``mma`` variant, finite logits;
+5j. dry-run  -- ``python -m repro_torch.launch.dryrun`` (no card: meshes of
+                 ``meta`` devices) for four cells of the single-pod mesh
+                 (16 x 16) at once, one process each: hymba-1.5b
+                 ``decode_32k`` and ``long_500k``, granite-moe-3b
+                 ``prefill_32k``, smollm-135m ``train_4k``; each record
+                 ``ok``, its seconds printed, the phase under 90 s;
 6. LM kernels -- each LM kernel's time at every LM path's shapes (hymba's
                  serving and training, granite's serving and training, the
                  zoo's waves), beside the simt design at the same shape
@@ -271,6 +296,9 @@ NL_BLOCKS, NL_ITERS, NL_MODE = 512, 5, "euler"
 # RTS at the reference's own bounds (tests/test_nonlinear.py:
 # test_euler_mode_ieks, test_two_filter_ieks)
 NL_KERNEL_TOL, NL_SEQ_TOL, NL_TF_TOL = 1e-8, 5e-2, 1e-5
+# sequential_rts's timed runs a problem (12-20 s each; the script's time
+# limit leaves room for 3 beside the sharded serving and dry-run phases)
+NL_SEQ_RUNS = 3
 # ragged cell: record lengths drawn uniformly from these interval counts
 # (256 to 2048 blocks of nsub = 10), mostly not multiples of nsub
 RAGGED_LENGTHS = (2560, 20480)
@@ -379,6 +407,19 @@ SHARD_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 SHARD_PARAM_TOL = dict(rtol=5e-4, atol=5e-5)
 SHARD_ADAM_BAND = 100       # times AdamW's eps
 SHARD_BF16_RTOL = 1e-2
+# sharded serving path: the serving cell on SHARD_MESHES at full width and
+# depth; its float32 gate at 2 layers, 2 x 512 tokens and 4 decode steps
+# against the single-device run at tests/test_torch_lm.py's TOL
+SERVE_CHECK_STEPS = 4
+SERVE_TOL = dict(rtol=2e-4, atol=2e-4)
+# the dry-run phase: four cells of the single-pod mesh, one process each,
+# all at once; the phase's bound
+DRYRUN_CELLS = (("hymba-1.5b", "decode_32k"), ("hymba-1.5b", "long_500k"),
+                ("granite-moe-3b-a800m", "prefill_32k"),
+                ("smollm-135m", "train_4k"))
+DRYRUN_LIMIT_S = 90.0
+# the single-device serving phases' numbers, for the sharded ones
+SERVED = {}
 # name fragments of the port's kernels in a profiler trace
 PORT_KERNELS = ("flash_attn", "ssd_", "lqt_combine", "lqt_scan")
 
@@ -784,6 +825,7 @@ FA_CASES = [
     (2, 48, 4, 2048, 2048, 128, True, None),
     (2, 16, 16, 2048, 2048, 80, False, None),
     (2, 6, 2, 2048, 2048, 64, True, None),
+    (4, 6, 2, 2048, 2048, 64, True, None),
     (1, 4, 2, 100, 300, 80, True, None),
     (1, 6, 2, 200, 200, 80, True, 70),
 ]
@@ -1316,16 +1358,19 @@ def nonlinear_path(lqt_kernel, lqt_scan) -> tuple:
                                      f"{tol:.0e}")
 
     # sequential_rts takes 12-20 s a solve (~5120 eager steps a pass): its
-    # timed gate solve above is the first of its 5 runs on each problem
+    # timed gate solve above is the first of its NL_SEQ_RUNS runs on each
+    # problem
     solve_ms = {}
     for name, p in problems.items():
         for label, e in ests.items():
             seq = label == "sequential_rts"
+            runs = NL_SEQ_RUNS if seq else 5
             solve_ms[(name, label)] = median_solve_ms(
-                e, p, warm_up=not seq, taken=(seq_gate_ms[name],) if seq
-                else ())
+                e, p, runs=runs, warm_up=not seq,
+                taken=(seq_gate_ms[name],) if seq else ())
             log(f"  solve {name} {label}: median "
-                f"{solve_ms[(name, label)]:.3f} ms over 5 runs (CUDA events, "
+                f"{solve_ms[(name, label)]:.3f} ms over {runs} runs (CUDA "
+                f"events, "
                 f"{'the first its gate solve' if seq else 'after one warm-up'})")
         log(f"  {name}: sequential_rts / parallel_kernel = "
             f"{solve_ms[(name, 'sequential_rts')] / solve_ms[(name, 'parallel_kernel')]:.2f}")
@@ -2687,6 +2732,7 @@ def serving_path(cfg, params, fa_kernel, ssd_kernel) -> dict:
         f"{LM_PROMPT} tokens over 3 runs ({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} "
         f"tokens/s)")
     cur = torch.argmax(logits[:, -1], dim=-1)
+    first_logits = logits[:, -1].float().cpu()
     steps = []
     for _ in range(LM_NEW - 1):
         start, stop = (torch.cuda.Event(enable_timing=True)
@@ -2701,6 +2747,10 @@ def serving_path(cfg, params, fa_kernel, ssd_kernel) -> dict:
     log(f"  decode: median {decode_ms:.3f} ms per step of {LM_BATCH} tokens "
         f"over {len(steps)} steps (min {min(steps):.3f}, max "
         f"{max(steps):.3f}; {LM_BATCH / decode_ms * 1e3:.1f} tokens/s)")
+    SERVED[cfg.name] = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                        "new_per_s": new_tokens / gen_ms * 1e3,
+                        "tokens": [r.out for r in done],
+                        "logits": first_logits}
 
     if cfg.is_moe:
         routings = {}
@@ -3669,6 +3719,248 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel) -> tuple:
           if head_local else cfg8)
     return at, SHARD_BATCH, launches
 
+def serving_check(cfg, shape) -> None:
+    """The sharded serving path's float32 gate: ``cfg`` at full width and
+    SHARD_CHECK_LAYERS layers, 2 x SHARD_CHECK_SEQ tokens through the
+    kernels, sharded prefill and SERVE_CHECK_STEPS decode steps on a
+    ``shape`` mesh of cuda:0 against the single-device run on the same
+    weights: the logits, every cache shard against its slice of the
+    single-device cache, and the greedy tokens."""
+    from repro_torch import tree
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed import mesh_context, spmd
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer
+    from repro_torch.train.trainer import make_shardings
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=SHARD_CHECK_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = transformer.init(cfg32, gen)
+    toks = torch.randint(0, cfg.vocab_size, (shape[0], SHARD_CHECK_SEQ),
+                         generator=gen, device="cuda")
+    max_len = SHARD_CHECK_SEQ + SERVE_CHECK_STEPS
+    worst = {"logits": 0.0, "caches": 0.0}
+    miss = []
+
+    def close(a, b, what):
+        a, b = a.float(), b.float()
+        err = float(((a - b).abs() / (SERVE_TOL["atol"] + SERVE_TOL["rtol"]
+                                      * b.abs())).max())
+        worst[what] = max(worst[what], err)
+        if err > 1.0:
+            miss.append(what)
+
+    def caches_close(sharded, single):
+        for (path, x), (_, y) in zip(tree.flatten(sharded),
+                                     tree.flatten(single)):
+            for pos in np.ndindex(x.shards.shape):
+                close(x.shards[pos], y[x.index(pos)], "caches")
+
+    mesh = shard_mesh(shape)
+    with mesh_context(mesh):
+        p_sh, _ = make_shardings(cfg32, TrainConfig(), mesh)
+        sp = spmd.device_put(params, p_sh)
+        l1, c1 = transformer.prefill(params, {"tokens": toks}, cfg32,
+                                     max_len, use_kernel=True)
+        l2, c2 = transformer.prefill(sp, {"tokens": spmd.device_put(
+            toks, shd.named_sharding(toks.shape, ("batch", None)))}, cfg32,
+            max_len, use_kernel=True)
+        close(spmd.gather(l2, "cuda"), l1, "logits")
+        caches_close(c2, c1)
+        cur1 = torch.argmax(l1[:, -1], dim=-1)
+        cur2 = torch.argmax(spmd.gather(l2, "cuda")[:, -1], dim=-1)
+        same = [bool(torch.equal(cur1, cur2))]
+        for _ in range(SERVE_CHECK_STEPS):
+            l1, c1 = transformer.decode_step(params, cur1, c1, cfg32)
+            l2, c2 = transformer.decode_step(sp, spmd.device_put(
+                cur2, shd.named_sharding(cur2.shape, ("batch",))), c2, cfg32)
+            g2 = spmd.gather(l2, "cuda")
+            close(g2, l1, "logits")
+            cur1, cur2 = torch.argmax(l1, dim=-1), torch.argmax(g2, dim=-1)
+            same.append(bool(torch.equal(cur1, cur2)))
+        caches_close(c2, c1)
+    log(f"  float32 check, {SHARD_CHECK_LAYERS} layers, {shape[0]} x "
+        f"{SHARD_CHECK_SEQ} tokens, prefill + {SERVE_CHECK_STEPS} decode "
+        f"steps: worst |diff| / (atol + rtol |single|) logits "
+        f"{worst['logits']:.3e}, every cache shard {worst['caches']:.3e} "
+        f"(gate 1 at rtol {SERVE_TOL['rtol']:.0e} / atol "
+        f"{SERVE_TOL['atol']:.0e}); greedy tokens equal at each step: "
+        f"{same}")
+    if miss or not all(same):
+        raise AssertionError(f"sharded float32 serving disagrees with the "
+                             f"single-device run: {sorted(set(miss))}, "
+                             f"tokens {same}")
+
+
+def sharded_serving_path(cfg, fa_kernel, ssd_kernel) -> tuple:
+    """``ServeEngine.generate`` on ``cfg`` at full width and depth, its
+    params laid out for its SHARD_MESHES mesh of cuda:0 (the engine under
+    the mesh's ``mesh_context``), the serving cell's requests: the float32
+    gate, exact launches (per data group and layer one, or one per model
+    shard where attention is head-local), finite logits, prefill ms a wave
+    and decode ms a step (CUDA events around each call of the engine's
+    prefill and decode), new tokens/s, all beside the single-device
+    engine's; the greedy tokens' agreement with it; the collective log of
+    a prefill wave and a decode step; peak memory.  Returns the config a
+    launch runs at, the batch per launch and the launches."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed import mesh_context, spmd
+    from repro_torch.models import transformer
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.train.trainer import make_shardings
+
+    shape = SHARD_MESHES[cfg.name]
+    d, m = shape
+    serving_check(cfg, shape)
+    torch.cuda.empty_cache()
+    params = transformer.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    mesh = shard_mesh(shape)
+    calls = {"prefill": [], "decode": []}
+    first_logits = {}
+    bad = []
+
+    def timed(kind, fn):
+        def call(*args):
+            log_ = spmd.CollectiveLog()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            with spmd.recording(log_):
+                logits, caches = fn(*args)
+            ev[1].record()
+            if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+                bad.append(kind)
+            if not calls[kind]:
+                first_logits[kind] = logits.reshape(
+                    logits.shape[0], -1)[:, :cfg.vocab_size].float().cpu()
+            calls[kind].append((ev, log_))
+            return logits, caches
+        return call
+
+    waves = -(-LM_REQUESTS // LM_BATCH)
+    head_local = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    want = lm_kernel_launches(cfg, waves * d * cfg.num_layers)
+    if want["flash_attention"] and head_local:
+        want["flash_attention"] *= m
+    with mesh_context(mesh):
+        p_sh, _ = make_shardings(cfg, TrainConfig(), mesh)
+        sp = spmd.device_put(params, p_sh)
+        del params
+        engine = ServeEngine(cfg, sp, batch=LM_BATCH, max_len=LM_MAX_LEN)
+        engine._prefill = timed("prefill", engine._prefill)
+        engine._decode = timed("decode", engine._decode)
+        reqs = lm_requests(cfg, Request)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa_kernel.reset_launch_count()
+        ssd_kernel.reset_launch_count()
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        done = engine.generate(reqs)
+        stop.record()
+        torch.cuda.synchronize()
+    launches = counted_launches(fa_kernel, ssd_kernel, want, "mma",
+                                f"main path ({waves} sharded waves)")
+    peak = torch.cuda.max_memory_allocated()
+    del engine, sp
+    gen_ms = start.elapsed_time(stop)
+    new = sum(len(r.out) for r in done)
+    pre = [ev[0].elapsed_time(ev[1]) for ev, _ in calls["prefill"]]
+    dec = [ev[0].elapsed_time(ev[1]) for ev, _ in calls["decode"]]
+    single = SERVED[cfg.name]
+    agree = [float(np.mean(r.out == t))
+             for r, t in zip(done, single["tokens"])]
+    first = sum(int(r.out[0] == t[0]) for r, t in zip(done, single["tokens"]))
+    log(f"{cfg.name} at full width and depth, bf16, a (data, model) mesh of "
+        f"{d} x {m} cuda:0; attention "
+        f"{'head-local, ' + str(cfg.num_heads // m) + '/' + str(cfg.num_kv_heads // m) + ' heads a shard' if head_local else 'at full heads a data group'}; "
+        f"on {card()}")
+    log(f"  generate: {gen_ms:.1f} ms for {LM_REQUESTS} requests, {new} new "
+        f"tokens -> {new / gen_ms * 1e3:.1f} new tokens/s (single-device "
+        f"engine {single['new_per_s']:.1f})")
+    log(f"  prefill: {', '.join(f'{t:.1f}' for t in pre)} ms per wave of "
+        f"{LM_BATCH} x {LM_PROMPT} (single-device median "
+        f"{single['prefill_ms']:.1f}); decode: median "
+        f"{statistics.median(dec):.1f} ms per step of {LM_BATCH} tokens over "
+        f"{len(dec)} steps (min {min(dec):.1f}, max {max(dec):.1f}; "
+        f"single-device median {single['decode_ms']:.1f})")
+    ref = single["logits"][:, :cfg.vocab_size]
+    diff = float((first_logits["prefill"] - ref).norm() / ref.norm())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    log(f"  greedy tokens equal to the single-device engine's: "
+        f"{statistics.mean(agree):.4f} of all (per request min "
+        f"{min(agree):.4f}), first tokens {first} of {len(done)} (bf16 sums "
+        f"in another order; not gated); the first wave's last logits differ "
+        f"by {diff:.3e} normwise from the single-device engine's, whose "
+        f"top-2 gaps are median {float((top2[:, 0] - top2[:, 1]).median()):.3e} "
+        f"of a max |logit| {float(ref.abs().max()):.3e}")
+    for kind in ("prefill", "decode"):
+        by_kind = calls[kind][0][1].by_kind()
+        log(f"  collectives of one {kind} {'wave' if kind == 'prefill' else 'step'} "
+            f"(one device's schedule): "
+            + ", ".join(f"{k} {n} ({b / 1e6:.2f} MB)"
+                        for k, (n, b) in sorted(by_kind.items()))
+            + f"; {sum(b for _, b in by_kind.values()) / 1e6:.2f} MB in all")
+    log(f"  peak memory {peak / 1e9:.2f} GB; on {card()}")
+    if bad or any(r.out.shape != (LM_NEW,) for r in done):
+        raise AssertionError(f"sharded serving: non-finite logits in {bad} "
+                             f"or short outputs")
+    at = (dataclasses.replace(cfg, name=f"{cfg.name} head-local",
+                              num_heads=cfg.num_heads // m,
+                              num_kv_heads=cfg.num_kv_heads // m)
+          if head_local else cfg)
+    return at, LM_BATCH // d, launches
+
+
+def dryrun_path() -> None:
+    """The dry-run on meshes of ``meta`` devices: DRYRUN_CELLS at once, one
+    ``python -m repro_torch.launch.dryrun`` process each (no card), each
+    record ``ok``, the phase within DRYRUN_LIMIT_S."""
+    out = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in DRYRUN_CELLS]
+    wall, fails = {}, []
+    try:
+        for (arch, shape), p in zip(DRYRUN_CELLS, procs):
+            left = DRYRUN_LIMIT_S - (time.perf_counter() - t0)
+            text, _ = p.communicate(timeout=max(left, 1.0))
+            wall[arch, shape] = time.perf_counter() - t0
+            if p.returncode != 0:
+                fails.append((arch, shape, text[-2000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    took = time.perf_counter() - t0
+    for arch, shape in DRYRUN_CELLS:
+        rec = json.loads((out / f"pod256--{arch}--{shape}.json").read_text())
+        if rec["status"] != "ok":
+            fails.append((arch, shape, rec.get("error")))
+            continue
+        c = rec["collectives"]
+        log(f"  {arch} {shape}: {rec['status']}, {rec['lower_s']} s in the "
+            f"run, {wall[arch, shape]:.1f} s to the process's end; flops "
+            f"{rec['cost_analysis']['flops']:.4g} (one device), collectives "
+            f"{c['total_bytes'] / 1e6:.2f} MB out, "
+            f"{c['total_wire_bytes'] / 1e6:.2f} MB on the wire "
+            f"({', '.join(f'{k} {n}' for k, n in c['counts'].items() if n)}), "
+            f"arguments {rec['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f} GB"
+            f" a device")
+    log(f"  dry-run phase: {took:.1f} s for {len(DRYRUN_CELLS)} cells at once "
+        f"(bound {DRYRUN_LIMIT_S:.0f} s)")
+    if fails or took > DRYRUN_LIMIT_S:
+        raise AssertionError(f"dry-run: {fails}, {took:.1f} s")
+
+
 def in_turns(fns: dict, reps: dict, rounds: int = 2) -> dict:
     """``{name: (ms, profiler ms)}`` per call of each function, timed in
     turns (a, b, ..., then again) so that the card's state is shared: CUDA
@@ -3991,12 +4283,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"sharded training phase ({LM_ARCH}): "
         f"{time.perf_counter() - t0:.1f} s")
+    phase(f"sharded serving path: {LM_ARCH}, full width and depth on a "
+          f"{' x '.join(map(str, SHARD_MESHES[LM_ARCH]))} (data, model) "
+          f"mesh of cuda:0")
+    t0 = time.perf_counter()
+    hymba_serve_sharded = sharded_serving_path(cfg, fa_kernel, ssd_kernel)
+    torch.cuda.empty_cache()
+    log(f"sharded serving phase ({LM_ARCH}): "
+        f"{time.perf_counter() - t0:.1f} s")
     micro = TRAIN_BATCH // TRAIN_MICRO
     lm_paths = {"serving": (cfg, LM_BATCH, launches),
                 "training": (cfg, micro, train_launches),
                 "pipeline": (cfg, PIPE_BATCH, pipe_launches),
                 "compressed data-parallel": (cfg, DP_BATCH, dp_launches),
-                "sharded training": hymba_sharded}
+                "sharded training": hymba_sharded,
+                "sharded serving": hymba_serve_sharded}
 
     t0 = time.perf_counter()
     phase(f"serving path: {MOE_ARCH}, bfloat16, full width and depth")
@@ -4035,6 +4336,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"sharded training phase ({MOE_ARCH}): "
         f"{time.perf_counter() - t1:.1f} s")
+    phase(f"sharded serving path: {MOE_ARCH}, full width and depth on a "
+          f"{' x '.join(map(str, SHARD_MESHES[MOE_ARCH]))} (data, model) "
+          f"mesh of cuda:0")
+    t1 = time.perf_counter()
+    lm_paths["granite sharded serving"] = sharded_serving_path(
+        mcfg, fa_kernel, ssd_kernel)
+    torch.cuda.empty_cache()
+    log(f"sharded serving phase ({MOE_ARCH}): "
+        f"{time.perf_counter() - t1:.1f} s")
     log(f"{MOE_ARCH} phases: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4044,6 +4354,9 @@ def main() -> int:
         if zoo_launches is not None:
             lm_paths[f"{name} serving"] = (zcfg, ZOO_BATCH, zoo_launches)
     log(f"zoo phases: {time.perf_counter() - t0:.1f} s")
+
+    phase("dry-run: four cells of the single-pod mesh on meta devices")
+    dryrun_path()
 
     phase("LM kernel timing at the serving and training paths' shapes")
     kernels += lm_kernel_timing(lm_paths, fa_kernel, fa_ref, ssd_kernel,

@@ -419,6 +419,9 @@ class NamedSharding:
     axes the spec does not name hold replicas."""
     mesh: Mesh
     spec: PartitionSpec
+    # shapes and slices already worked out, per global shape
+    _memo: dict = dataclasses.field(default_factory=dict, init=False,
+                                    compare=False, hash=False, repr=False)
 
     def parts(self, ndim: int) -> tuple:
         """The number of blocks each of ``ndim`` dimensions is cut into."""
@@ -428,27 +431,59 @@ class NamedSharding:
 
     def shard_shape(self, shape) -> tuple:
         """The local shape of a tensor of global ``shape``."""
-        out = []
-        for n, k in zip(shape, self.parts(len(shape))):
-            if n % k:
-                raise ValueError(f"dimension {n} of {tuple(shape)} does not "
-                                 f"divide into the {k} blocks of {self.spec}")
-            out.append(n // k)
-        return tuple(out)
+        key = tuple(shape)
+        out = self._memo.get(key)
+        if out is None:
+            out = []
+            for n, k in zip(shape, self.parts(len(shape))):
+                if n % k:
+                    raise ValueError(
+                        f"dimension {n} of {tuple(shape)} does not divide "
+                        f"into the {k} blocks of {self.spec}")
+                out.append(n // k)
+            out = self._memo[key] = tuple(out)
+        return out
 
     def index(self, position: tuple, shape) -> tuple:
         """The slices of a tensor of global ``shape`` that mesh
         ``position`` holds."""
-        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
-        at = dict(zip(self.mesh.axis_names, position))
-        local = self.shard_shape(shape)
+        key = (tuple(position), tuple(shape))
+        out = self._memo.get(key)
+        if out is None:
+            local = self.shard_shape(shape)
+            out = self._memo[key] = tuple(
+                slice(b * n, (b + 1) * n)
+                for b, n in zip(self.blocks(position, len(shape)), local))
+        return out
+
+    def blocks(self, position: tuple, ndim: int) -> tuple:
+        """The block of each of ``ndim`` dimensions that mesh ``position``
+        holds."""
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
         out = []
-        for entry, n in zip(spec, local):
+        for entry in spec[:ndim]:
             block = 0
             for a in _entry_axes(entry):
-                block = block * self.mesh.shape[a] + at[a]
-            out.append(slice(block * n, (block + 1) * n))
+                k = self.mesh.axis_names.index(a)
+                block = block * self.mesh.devices.shape[k] + position[k]
+            out.append(block)
         return tuple(out)
+
+    def holder(self, blocks: tuple, near: tuple) -> tuple:
+        """The mesh position that holds ``blocks`` (one block index per
+        dimension) nearest ``near``: its coordinates on the axes the spec
+        names are those of the blocks, on the others ``near``'s (the
+        unique position that differs from ``near`` on fewest axes)."""
+        pos = list(near)
+        sizes = self.mesh.devices.shape
+        names = self.mesh.axis_names
+        for entry, b in zip(tuple(self.spec) + (None,) * (
+                len(blocks) - len(self.spec)), blocks):
+            for a in reversed(_entry_axes(entry)):
+                k = names.index(a)
+                pos[k] = b % sizes[k]
+                b //= sizes[k]
+        return tuple(pos)
 
 
 def choose_pspec(shape: Sequence[int], logical: Sequence[Optional[str]],

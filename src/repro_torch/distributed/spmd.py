@@ -103,8 +103,46 @@ executor decides each layout where the reference pinned it:
   residual stream is replicated over the model axis on each group's home;
   the logits are all-gathered over ``vocab``.  ``seq_sp`` is not executed.
 
-Not executed here: prefill and decode on sharded caches, meshes whose
-data and model axes overlap (the dp-only policy), and other mesh axes.
+**Prefill and decode** (``transformer.prefill``/``decode_step`` on
+sharded params, as the reference's ``jax.jit`` partitions them over
+sharded inputs) run the data groups in lockstep as the train step does,
+and lay the caches out by ``launch/steps.py::cache_pspecs``: the layers
+axis whole, the batch over the data axes (with its fallback: long_500k's
+one row is held by every group and run by the first), kv heads, ``hd``,
+SSM heads or conv channels over the model axis.  Each cache piece is
+written on its own device, into every position that holds its rows:
+
+* *keys and values*: where ``wq``/``wk``/``wv`` are head-local, each shard
+  writes its own kv heads; otherwise the projections are all-gathered,
+  rope'd at full ``hd`` on the home (rope rotates the two halves of
+  ``hd`` together, so an ``hd`` split cannot rope its slice alone) and only
+  then split into the cache's shards.  Decode on kv split over heads:
+  each shard scores its heads against its shard; on kv split over
+  ``hd``: each shard's scores are a partial sum over its ``hd`` slice,
+  reduced with one all-reduce before the softmax, and each shard's output
+  is its ``hd`` slice.  The shards' partial ``wo`` products are
+  all-reduced where ``wo`` splits the same way, else the outputs are
+  all-gathered first.
+* *the SSM*: the conv tail split over channels (hymba's 3232 / 2 cuts
+  ``x`` and leaves B and C on the last shard): each shard convolves its
+  channels and the activations are all-gathered; the state split over
+  heads (or the head dimension): prefill writes each state shard from
+  its heads' inputs and the B columns of their groups, decode updates
+  each shard with its heads and their B and C columns, the outputs
+  all-gathered.
+* *logits*: the last position's, all-gathered over ``vocab``, returned as
+  a ShardedTensor split over the batch.
+
+**Meshes of ``meta`` devices** (``repro_torch.launch.dryrun``) run the
+same programs on shapes alone: the counterpart of the reference's
+``jit(...).lower().compile()`` on 512 forced host devices, giving the
+collective log, one device's FLOPs and its shard sizes without storage.
+There, re-layouts make each slice at its shape, and (:func:`per_group`,
+:func:`shard_map`) the first data group's and model shard's results
+stand for the others', whose shapes are the same.
+
+Not executed here: meshes whose data and model axes overlap (the dp-only
+policy), and other mesh axes.
 """
 from __future__ import annotations
 
@@ -156,22 +194,30 @@ class ShardedTensor:
         """The global slices the shard at ``position`` holds."""
         return self.sharding.index(position, self.shape)
 
-    def pieces(self, prefer: Optional[tuple] = None) -> list:
-        """``[(global slices, tensor)]``, one per distinct slice, the
-        shard at ``prefer`` (or at a position sharing its coordinate on
-        each axis the spec names) first."""
-        positions = list(np.ndindex(self.shards.shape))
-        if prefer is not None:
-            positions.sort(key=lambda p: sum(a != b for a, b in
-                                             zip(p, prefer)))
-        out, seen = [], set()
-        for p in positions:
-            sl = self.index(p)
-            key = tuple((s.start, s.stop) for s in sl)
-            if key not in seen:
-                seen.add(key)
-                out.append((sl, self.shards[p]))
-        return out
+    def pieces(self, prefer: Optional[tuple] = None,
+               want: Optional[tuple] = None) -> list:
+        """``[(global slices, tensor)]``, one per distinct slice (only
+        those that meet the global slices ``want``, when given), each the
+        shard of the holder nearest ``prefer``: the position that shares
+        ``prefer``'s coordinate on every axis the spec does not name.
+        Without ``prefer``, each slice's first holder, in mesh order."""
+        sh = self.sharding
+        local = sh.shard_shape(self.shape)
+        parts = sh.parts(self.ndim)
+        if want is None:
+            ranges = [range(k) for k in parts]
+        else:
+            ranges = [range(w.start // n, -(-w.stop // n)) if n else
+                      range(0) for w, n in zip(want, local)]
+        near = prefer or (0,) * self.shards.ndim
+        out = []
+        for blocks in itertools.product(*ranges):
+            pos = sh.holder(blocks, near)
+            out.append((pos, tuple(slice(b * n, (b + 1) * n)
+                                   for b, n in zip(blocks, local))))
+        if prefer is None:
+            out.sort(key=lambda ps: ps[0])
+        return [(sl, self.shards[pos]) for pos, sl in out]
 
     def __repr__(self) -> str:
         return (f"ShardedTensor(shape={tuple(self.shape)}, "
@@ -190,8 +236,15 @@ def _positions(mesh: Mesh) -> list:
 def assemble(pieces: Sequence, want: tuple, device,
              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The block ``want`` (global slices) of a tensor held as ``pieces``
-    (``[(global slices, tensor)]``), a new tensor on ``device``."""
+    (``[(global slices, tensor)]``), a new tensor on ``device``.  On
+    ``meta`` (shapes only: nothing to copy) the block is made at its
+    shape."""
     shape = [w.stop - w.start for w in want]
+    if torch.device(device).type == "meta":
+        if not pieces:
+            raise ValueError(f"no piece covers {want}")
+        return torch.empty(shape, dtype=dtype or pieces[0][1].dtype,
+                           device=device)
     out = None
     for sl, t in pieces:
         inter = [(max(a.start, w.start), min(a.stop, w.stop))
@@ -223,18 +276,40 @@ class PartialSum:
         self.terms, self.shape = terms, torch.Size(shape)
 
 
+def _wanted(sh: NamedSharding, shape) -> dict:
+    """``{global slices: [positions]}``: the positions of ``sh``'s mesh
+    that hold each distinct slice of a tensor of ``shape``, in mesh
+    order."""
+    out = {}
+    for p in _positions(sh.mesh):
+        out.setdefault(sh.index(p, shape), []).append(p)
+    return out
+
+
+def _copies(value: torch.Tensor, positions: list, mesh: Mesh,
+            shards: np.ndarray) -> None:
+    """``value`` (the shard of ``positions[0]``) and one copy of it on the
+    device of each other position, into ``shards``."""
+    shards[positions[0]] = value
+    for p in positions[1:]:
+        shards[p] = value.to(mesh.devices[p], copy=True)
+
+
 def _put(x, sh: NamedSharding) -> ShardedTensor:
     shards = np.empty(sh.mesh.devices.shape, dtype=object)
-    for p in _positions(sh.mesh):
-        want = sh.index(p, x.shape)
-        dev = sh.mesh.devices[p]
+    for want, positions in _wanted(sh, x.shape).items():
+        dev = sh.mesh.devices[positions[0]]
         if isinstance(x, PartialSum):     # summed in float32, in order
-            shards[p] = sum(assemble(t, want, dev, torch.float32)
-                            for t in x.terms)
+            value = (assemble(x.terms[0], want, dev, torch.float32)
+                     if dev.type == "meta" else
+                     sum(assemble(t, want, dev, torch.float32)
+                         for t in x.terms))
         elif isinstance(x, ShardedTensor):
-            shards[p] = assemble(x.pieces(prefer=p), want, dev)
+            value = assemble(x.pieces(prefer=positions[0], want=want), want,
+                             dev)
         else:
-            shards[p] = x[want].to(dev, copy=True).contiguous()
+            value = x[want].to(dev, copy=True).contiguous()
+        _copies(value, positions, sh.mesh, shards)
     if isinstance(x, PartialSum):
         data = Layout(sh.mesh).data_axes
         split_ = any(set(sharding._entry_axes(e)) & set(data)
@@ -258,6 +333,75 @@ def device_put(t, shardings):
 def gather(x: ShardedTensor, device) -> torch.Tensor:
     """The global tensor of ``x`` on ``device``."""
     return assemble(x.pieces(), tuple(slice(0, n) for n in x.shape), device)
+
+
+def zeros(shape, dtype: torch.dtype, sh: NamedSharding) -> ShardedTensor:
+    """A zero tensor of global ``shape`` laid out by ``sh``: one fresh
+    local tensor per position."""
+    shards = np.empty(sh.mesh.devices.shape, dtype=object)
+    local = sh.shard_shape(shape)
+    for p in _positions(sh.mesh):
+        shards[p] = torch.zeros(local, dtype=dtype, device=sh.mesh.devices[p])
+    return ShardedTensor(shards, sh, shape)
+
+
+def holders(x: ShardedTensor, rows: slice, dim: int = 1) -> list:
+    """``[(position, model index)]``: the positions whose shard of ``x``
+    holds exactly the global ``rows`` of dimension ``dim``, in mesh order
+    (the model index is the position's coordinate on the model axis, 0
+    without one)."""
+    key = ("holders", dim, tuple(x.shape))
+    table = x.sharding._memo.get(key)
+    if table is None:
+        names = x.mesh.axis_names
+        model = Layout(x.mesh).model_axis
+        k = names.index(model) if model in names else None
+        table = {}
+        for p in _positions(x.mesh):
+            sl = x.index(p)[dim]
+            table.setdefault((sl.start, sl.stop), []).append(
+                (p, 0 if k is None else p[k]))
+        x.sharding._memo[key] = table
+    got = table.get((rows.start, rows.stop))
+    if got is None:
+        raise ValueError(f"{x}: no shard holds rows {rows.start}:{rows.stop} "
+                         f"of dimension {dim}")
+    return got
+
+
+def write_rows(x: ShardedTensor, layer: int, rows: slice, value=None,
+               parts=None) -> None:
+    """Write layer ``layer``'s block of batch ``rows`` into every shard of
+    ``x`` (a tensor stacked over layers: (layers, batch, ...)) that holds
+    those rows, on its own device, at the leading slots of each
+    dimension: ``value`` at full width (each shard takes its slice of the
+    dimension ``x`` splits over the model axis), or ``parts``, one tensor
+    per model index, already sliced."""
+    k = Layout(x.mesh).model_dim(x)
+    for p, j in holders(x, rows):
+        if parts is not None:
+            part = parts[j]
+        elif k is None:
+            part = value
+        else:
+            n = value.shape[k - 1] // x.sharding.parts(x.ndim)[k]
+            part = value.narrow(k - 1, j * n, n)
+        dst = x.shards[p][layer]
+        dst[tuple(slice(0, size) for size in part.shape)].copy_(part)
+
+
+def from_rows(values: dict, sh: NamedSharding, shape) -> ShardedTensor:
+    """A tensor of global ``shape`` laid out by ``sh``, which splits no
+    dimension but the first, from ``values`` (``{(start, stop): the
+    tensor of those rows}``, one per distinct slice): the first position
+    that holds a slice takes its tensor (moved to its device), the others
+    a copy."""
+    shards = np.empty(sh.mesh.devices.shape, dtype=object)
+    for want, positions in _wanted(sh, shape).items():
+        v = values[(want[0].start, want[0].stop)]
+        _copies(v.to(sh.mesh.devices[positions[0]]), positions, sh.mesh,
+                shards)
+    return ShardedTensor(shards, sh, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +593,63 @@ class Group:
             _STATE.logging = prev
 
 
+@contextlib.contextmanager
+def on_shard(j: int, device):
+    """Run model shard ``j``'s part of a region on ``device`` (current
+    there); only shard 0's part is the logged device's program."""
+    prev = _STATE.logging
+    _STATE.logging = prev and j == 0
+    try:
+        with device_scope(device):
+            yield
+    finally:
+        _STATE.logging = prev
+
+
+def logged() -> bool:
+    """Whether the program running now is the logged device's (the first
+    data group's home, model shard 0): what a per-device count reads."""
+    return _STATE.logging
+
+
+def per_group(groups: List["Group"], fn: Callable, *args) -> list:
+    """``[fn(g, *a) for g, *a in zip(groups, *args)]``, each call under
+    ``g.active()``.  On ``meta`` devices (the dry-run: shapes only) the
+    first group's result stands for every group's: the runners hold equal
+    slices of the batch, so their programs have the same shapes, and only
+    the first is logged."""
+    out = []
+    for i, (g, *a) in enumerate(zip(groups, *args)):
+        if i and g.home.type == "meta":
+            out.append(_stand_in(out[0]))
+            continue
+        with g.active():
+            out.append(fn(g, *a))
+    return out
+
+
+class _StandIn(torch.autograd.Function):
+    """Identity that saves its input for backward: on a run whose groups
+    are elided, a checkpoint's recomputation (which stops once every saved
+    tensor is back) still recomputes all of the first group's part, as it
+    does when the other groups' parts follow it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _stand_in(x):
+    if isinstance(x, torch.Tensor) and x.requires_grad:
+        return _StandIn.apply(x)
+    return x
+
+
 class Layout:
     """The data axes and the model axis of ``mesh``, from the ambient
     :func:`~.sharding.mesh_context` when it holds ``mesh`` (else the
@@ -632,7 +833,12 @@ def shard_map(fn: Callable, args: tuple, weights: tuple, *,
              else [w] * len(devices) for w in weights]
     outs = []
     for j, dev in enumerate(devices):
-        with device_scope(dev):
+        if j and dev.type == "meta":
+            # shapes only (the dry-run): every shard's part has shard 0's
+            # shapes, and no collective runs inside a region
+            outs.append(outs[0])
+            continue
+        with on_shard(j, dev):
             outs.append(fn(*(a[j] for a in per_arg), *(w[j] for w in per_w)))
     if out == "sum":
         return all_reduce(outs, devices[0])
@@ -744,13 +950,13 @@ def microbatches(batch, n: int, groups: List[Group]) -> list:
         shape = (B // n,) + tuple(x.shape[1:])
         for i in range(n):
             shards = np.empty(x.shards.shape, dtype=object)
-            for pos in _positions(x.mesh):
-                want = x.sharding.index(pos, shape)
+            for want, positions in _wanted(x.sharding, shape).items():
                 rows = slice(i * B // n + want[0].start,
                              i * B // n + want[0].stop)
-                shards[pos] = assemble(x.pieces(prefer=pos),
-                                       (rows,) + want[1:],
-                                       x.mesh.devices[pos])
+                at = (rows,) + want[1:]
+                _copies(assemble(x.pieces(prefer=positions[0], want=at), at,
+                                 x.mesh.devices[positions[0]]),
+                        positions, x.mesh, shards)
             out[i].append(ShardedTensor(shards, x.sharding, shape))
         record("all-to-all", _nbytes(x.sharding.shard_shape(x.shape),
                                      x.dtype), len(groups))

@@ -167,6 +167,14 @@ def moe_forward(params, x, cfg: ModelConfig, idx=None):
                            cfg).reshape(Bb, S, D)
 
 
+def _counts(idx, E: int):
+    """Assignments to each of the ``E`` experts (a scatter-add, which
+    also runs on ``meta`` tensors, where ``bincount``'s size is unknown)."""
+    flat = idx.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def moe_forward_groups(params_list: list, xs: list, cfg: ModelConfig,
                        groups: list) -> list:
     """The MoE layer on the data groups' tokens (``xs``, one (B, S, D) per
@@ -178,23 +186,24 @@ def moe_forward_groups(params_list: list, xs: list, cfg: ModelConfig,
     combines its own tokens; its buffer holds min(cap, its tokens) rows
     per expert."""
     E = cfg.moe_experts
-    chosen, counts = [], []
-    for g, p, x in zip(groups, params_list, xs):
-        with g.active():
-            xt = x.reshape(-1, x.shape[-1])
-            gate, idx = choose(p, xt, cfg)
-            chosen.append((xt, gate, idx))
-            counts.append(torch.bincount(idx.reshape(-1), minlength=E)[None])
-    every = spmd.all_gather(counts, 0, groups[0].home)
+
+    def chosen_of(g, p, x):
+        xt = x.reshape(-1, x.shape[-1])
+        return (xt,) + choose(p, xt, cfg)
+
+    chosen = spmd.per_group(groups, chosen_of, params_list, xs)
+    every = spmd.all_gather([_counts(idx, E)[None] for _, _, idx in chosen],
+                            0, groups[0].home)
     cap = capacity(sum(xt.shape[0] for xt, _, _ in chosen), cfg)
-    outs = []
-    for i, (g, p, x, (xt, gate, idx)) in enumerate(
-            zip(groups, params_list, xs, chosen)):
-        with g.active():
-            prior = every[:i].sum(dim=0).to(g.home)
-            r = place(gate, idx, cfg, cap, prior, min(cap, xt.shape[0]))
-            outs.append(_dispatch_apply(p, xt, r, cfg).reshape(x.shape))
-    return outs
+
+    def out_of(g, i, p, x, c):
+        xt, gate, idx = c
+        prior = every[:i].sum(dim=0).to(g.home)
+        r = place(gate, idx, cfg, cap, prior, min(cap, xt.shape[0]))
+        return _dispatch_apply(p, xt, r, cfg).reshape(x.shape)
+
+    return spmd.per_group(groups, out_of, range(len(groups)), params_list,
+                          xs, chosen)
 
 
 def _router_top1(params, x, cfg: ModelConfig) -> tuple:

@@ -135,23 +135,71 @@ def ssm_forward(params, x, cfg: ModelConfig, *, use_kernel: bool = False):
 
 
 def preconv_streams(params, x, cfg: ModelConfig):
-    """in_proj only (no conv/silu): (z, x, B, C, dt), each (B, L, *)."""
+    """in_proj only (no conv/silu): (z, x, B, C, dt), each (B, L, *).  A
+    sharded fused ``w_in`` is gathered; split projections go through
+    ``spmd.einsum``."""
     if cfg.ssm_fused_proj:
-        return _split_proj(cfg, x @ params["w_in"])
-    return (x @ params["w_z"], x @ params["w_x"], x @ params["w_B"],
-            x @ params["w_C"], x @ params["w_dt"])
+        return _split_proj(cfg, x @ spmd.local(params["w_in"]))
+    return tuple(spmd.einsum("bld,dk->blk", x, params[k], torch.matmul)
+                 for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
 
 def conv_cat_weights(params, cfg: ModelConfig):
     """(K, conv_dim) depthwise kernel over the concatenated (x, B, C)
     streams (decode-cache layout is stream-concatenated in both modes)."""
+    w = {k: spmd.local(v) for k, v in params.items() if k.startswith("conv")}
     if cfg.ssm_fused_proj:
-        return params["conv_w"], params["conv_b"]
-    w = torch.cat([params["conv_x_w"], params["conv_B_w"],
-                   params["conv_C_w"]], dim=1)
-    b = torch.cat([params["conv_x_b"], params["conv_B_b"],
-                   params["conv_C_b"]], dim=0)
-    return w, b
+        return w["conv_w"], w["conv_b"]
+    return (torch.cat([w["conv_x_w"], w["conv_B_w"], w["conv_C_w"]], dim=1),
+            torch.cat([w["conv_x_b"], w["conv_B_b"], w["conv_C_b"]], dim=0))
+
+
+def prefill_streams(params, x, cfg: ModelConfig) -> tuple:
+    """What the decode caches take from a full sequence ``x`` (B, L, D):
+    the conv tail (B, K - 1, conv_dim) of the pre-conv (x, B, C) streams;
+    each head's weighted inputs ``w`` (B, L, H, P) float32, ``exp(sum of
+    the later decays) dt x`` (the terminal SSD state is ``sum_l w B``);
+    and ``B`` (B, L, G, S) float32."""
+    Bb, L, _ = x.shape
+    _, xs, Bm, Cm, dt = preconv_streams(params, x, cfg)
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)
+    K = cfg.ssm_conv
+    tail = (xbc[:, L - (K - 1):] if L >= K - 1
+            else F.pad(xbc, (0, 0, K - 1 - L, 0)))
+    w_cat, b_cat = conv_cat_weights(params, cfg)
+    xbc_c = F.silu(_causal_conv(xbc, w_cat, b_cat))
+    din = cfg.ssm_inner
+    gs = cfg.ssm_groups * cfg.ssm_state
+    xs, Bm, Cm = torch.split(xbc_c, [din, gs, gs], dim=-1)
+    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+    xh = xs.reshape(Bb, L, H, Pd).float()
+    Bg = Bm.reshape(Bb, L, cfg.ssm_groups, cfg.ssm_state).float()
+    dth = F.softplus(dt + spmd.local(params["dt_bias"])[None, None]).float()
+    A = -torch.exp(spmd.local(params["A_log"]).float())
+    # terminal state = sum_s exp(cumsum_rev) dt x B  (one associative pass)
+    cum = torch.cumsum(dth * A[None, None], dim=1)
+    wfin = torch.exp(cum[:, -1:] - cum)                       # (B, L, H)
+    return tail, (wfin * dth)[..., None] * xh, Bg
+
+
+def terminal_state(w, Bg, cfg: ModelConfig):
+    """The SSD state (B, H, P, S) after the sequence of ``prefill_streams``'
+    ``w`` and ``Bg``."""
+    Bb, L, H, Pd = w.shape
+    G = cfg.ssm_groups
+    wg = w.reshape(Bb, L, G, H // G, Pd)
+    state = torch.einsum("blgrp,blgs->bgrps", wg, Bg)
+    return state.reshape(Bb, H, Pd, cfg.ssm_state)
+
+
+def terminal_state_part(w, Bg, cfg: ModelConfig, heads: slice, p: slice,
+                        device):
+    """Heads ``heads`` and head-dim slice ``p`` of ``terminal_state``,
+    computed on ``device`` from those heads' inputs and the B columns of
+    their groups."""
+    Bh = Bg.repeat_interleave(cfg.ssm_heads // cfg.ssm_groups, dim=2)
+    return torch.einsum("blhp,blhs->bhps", w[:, :, heads, p].to(device),
+                        Bh[:, :, heads].to(device))
 
 
 def ssm_decode(params, x, cfg: ModelConfig, cache: SSMCache):
@@ -178,17 +226,108 @@ def ssm_decode(params, x, cfg: ModelConfig, cache: SSMCache):
     dth = F.softplus(dt + params["dt_bias"][None]).float()
     A = -torch.exp(params["A_log"].float())
 
-    a = torch.exp(dth * A[None])                       # (B, H)
-    Bh = Bg.repeat_interleave(rep, dim=1)              # (B, H, S)
-    Ch = Cg.repeat_interleave(rep, dim=1)
-    state = (a[..., None, None] * cache.state
-             + (dth[..., None] * xh)[..., None] * Bh[:, :, None, :])
-    y = torch.einsum("bhps,bhs->bhp", state, Ch)
-    y = y + params["D_skip"].float()[None, :, None] * xh
+    state, y = _state_step(cache.state, xh, Bg, Cg, dth, A,
+                           params["D_skip"].float(), rep)
     y = y.reshape(Bb, din).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
     out = (y @ params["w_out"])[:, None]
     return out, SSMCache(new_conv, state)
+
+
+def _state_step(state, xh, Bg, Cg, dth, A, D, rep: int):
+    """One token's SSD update of ``state`` (B, H, P, S) and its output
+    (B, H, P), float32."""
+    a = torch.exp(dth * A[None])                       # (B, H)
+    Bh = Bg.repeat_interleave(rep, dim=1) if rep > 1 else Bg   # (B, H, S)
+    Ch = Cg.repeat_interleave(rep, dim=1) if rep > 1 else Cg
+    state = (a[..., None, None] * state
+             + (dth[..., None] * xh)[..., None] * Bh[:, :, None, :])
+    y = torch.einsum("bhps,bhs->bhp", state, Ch)
+    return state, y + D[None, :, None] * xh
+
+
+def ssm_decode_sharded(params, x, cfg: ModelConfig, conv_leaf, state_leaf,
+                       layer: int, group, rows: slice):
+    """One-token mamba2 step of one data group (``x``: (B_g, 1, D) on its
+    home, ``params`` its views) against layer ``layer`` of the sharded
+    stacked caches (``spmd.ShardedTensor``\\ s laid out by
+    ``launch.steps.cache_pspecs``), ``rows`` its batch rows.
+
+    The projections run on the home (``w_in`` gathered).  The conv tail
+    split over channels: each model shard convolves its channels and
+    writes its tail; the activations are all-gathered.  The state split
+    over heads (or over the head dimension): each shard updates its part
+    with its heads' inputs and their groups' B and C columns, and the
+    outputs are all-gathered.  A replicated cache is stepped on the home's
+    copy.  Every position that holds these rows gets the new tail and
+    state, in place."""
+    Bb = x.shape[0]
+    z, xs, Bm, Cm, dt = (a[:, 0] for a in preconv_streams(params, x, cfg))
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)             # (B, conv_dim)
+    w, bconv = conv_cat_weights(params, cfg)           # (K, conv_dim)
+    layout = spmd.Layout(conv_leaf.mesh)
+    devices = group.devices
+    m = len(devices)
+
+    def own(leaf, j):
+        return leaf.shards[group.positions[j]][layer]
+
+    if layout.model_dim(conv_leaf) is None:
+        hist = torch.cat([own(conv_leaf, 0), xbc[:, None]], dim=1)
+        xbc = F.silu(torch.einsum("bkc,kc->bc", hist, w) + bconv)
+        spmd.write_rows(conv_leaf, layer, rows, hist[:, 1:])
+    else:                                              # over channels
+        n = xbc.shape[-1] // m
+        acts, tails = [], []
+        for j, dev in enumerate(devices):
+            with spmd.on_shard(j, dev):
+                c = slice(j * n, (j + 1) * n)
+                hist = torch.cat([own(conv_leaf, j), xbc[:, None, c].to(dev)],
+                                 dim=1)
+                acts.append(F.silu(torch.einsum(
+                    "bkc,kc->bc", hist, w[:, c].to(dev)) + bconv[c].to(dev)))
+                tails.append(hist[:, 1:])
+        spmd.write_rows(conv_leaf, layer, rows, parts=tails)
+        xbc = spmd.all_gather(acts, 1, group.home)
+
+    din = cfg.ssm_inner
+    gs = cfg.ssm_groups * cfg.ssm_state
+    xs, Bm, Cm = torch.split(xbc, [din, gs, gs], dim=-1)
+    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+    G, S = cfg.ssm_groups, cfg.ssm_state
+    rep = H // G
+    xh = xs.reshape(Bb, H, Pd).float()
+    Bg = Bm.reshape(Bb, G, S).float()
+    Cg = Cm.reshape(Bb, G, S).float()
+    dth = F.softplus(dt + spmd.local(params["dt_bias"])[None]).float()
+    A = -torch.exp(spmd.local(params["A_log"]).float())
+    D = spmd.local(params["D_skip"]).float()
+    sdim = layout.model_dim(state_leaf)                # 2: heads, 3: P
+    if sdim is None:
+        state, y = _state_step(own(state_leaf, 0), xh, Bg, Cg, dth, A, D, rep)
+        spmd.write_rows(state_leaf, layer, rows, state)
+    else:
+        ys, states = [], []
+        Bh, Ch = (g.repeat_interleave(rep, dim=1) for g in (Bg, Cg))
+        for j, dev in enumerate(devices):
+            with spmd.on_shard(j, dev):
+                hs, ps = slice(None), slice(None)
+                if sdim == 2:
+                    hs = slice(j * H // m, (j + 1) * H // m)
+                else:
+                    ps = slice(j * Pd // m, (j + 1) * Pd // m)
+                state, yj = _state_step(
+                    own(state_leaf, j), xh[:, hs, ps].to(dev),
+                    Bh[:, hs].to(dev), Ch[:, hs].to(dev),
+                    dth[:, hs].to(dev), A[hs].to(dev), D[hs].to(dev), 1)
+                states.append(state)
+                ys.append(yj)
+        spmd.write_rows(state_leaf, layer, rows, parts=states)
+        y = spmd.all_gather(ys, sdim - 1, group.home)
+    y = y.reshape(Bb, din).to(x.dtype)
+    y = rms_norm(y * F.silu(z), spmd.local(params["gate_norm"]), cfg.norm_eps)
+    return spmd.einsum("blk,kd->bld", y[:, None], params["w_out"],
+                       torch.matmul)
 
 
 def _causal_conv(x, w, b):

@@ -19,12 +19,15 @@ from __future__ import annotations
 import functools
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import NamedSharding, PartitionSpec
 
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -147,44 +150,48 @@ def _ffn(p, x, cfg):
     return x
 
 
-def _mixer_residual(p, x, cfg: ModelConfig, positions, use_kernel):
+def _mixer_residual(p, x, cfg: ModelConfig, positions, use_kernel,
+                    causal_skip=False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mixer == "attn":
         mix = attn_mod.attention_forward(p["attn"], h, cfg, positions,
-                                         use_kernel=use_kernel)
+                                         use_kernel=use_kernel,
+                                         causal_skip=causal_skip)
     elif cfg.mixer == "ssm":
         mix = ssm_mod.ssm_forward(p["ssm"], h, cfg, use_kernel=use_kernel)
     else:
         a = attn_mod.attention_forward(p["attn"], h, cfg, positions,
-                                       use_kernel=use_kernel)
+                                       use_kernel=use_kernel,
+                                       causal_skip=causal_skip)
         s = ssm_mod.ssm_forward(p["ssm"], h, cfg, use_kernel=use_kernel)
         mix = _mix(p, a, s, cfg)
     return x + mix
 
 
-def _layer_forward(p, x, cfg: ModelConfig, positions, use_kernel):
-    return _ffn(p, _mixer_residual(p, x, cfg, positions, use_kernel), cfg)
+def _layer_forward(p, x, cfg: ModelConfig, positions, use_kernel,
+                   causal_skip=False):
+    return _ffn(p, _mixer_residual(p, x, cfg, positions, use_kernel,
+                                   causal_skip), cfg)
 
 
 def _layer_forward_groups(ps, xs, *, groups, cfg: ModelConfig, positions,
-                          use_kernel):
+                          use_kernel, causal_skip=False):
     """One layer for every data group (``ps``/``xs``/``positions``: one
     each per group), in lockstep: a MoE layer routes the groups' tokens
     together (``moe.moe_forward_groups``)."""
-    ys = []
-    for g, p, x, pos in zip(groups, ps, xs, positions):
-        with g.active():
-            ys.append(_mixer_residual(p, x, cfg, pos, use_kernel))
+    ys = spmd.per_group(groups, lambda g, p, x, pos: _mixer_residual(
+        p, x, cfg, pos, use_kernel, causal_skip), ps, xs, positions)
+    return _ffn_groups(ps, ys, groups, cfg)
+
+
+def _ffn_groups(ps, ys, groups, cfg: ModelConfig) -> list:
+    """The FFN of every data group's residual stream ``ys``, in lockstep
+    for a MoE layer."""
     if "moe" not in ps[0]:
-        out = []
-        for g, p, y in zip(groups, ps, ys):
-            with g.active():
-                out.append(_ffn(p, y, cfg))
-        return out
-    hs = []
-    for g, p, y in zip(groups, ps, ys):
-        with g.active():
-            hs.append(rms_norm(y, p["ln2"], cfg.norm_eps))
+        return spmd.per_group(groups, lambda g, p, y: _ffn(p, y, cfg), ps,
+                              ys)
+    hs = spmd.per_group(groups, lambda g, p, y: rms_norm(
+        y, p["ln2"], cfg.norm_eps), ps, ys)
     outs = moe_mod.moe_forward_groups([p["moe"] for p in ps], hs, cfg,
                                       groups)
     return [y + o for y, o in zip(ys, outs)]
@@ -198,6 +205,15 @@ def _unstack(tree: dict, n: int) -> list:
     parts = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
              for k, v in tree.items()}
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+def _per_group_params(ps, groups, take) -> list:
+    """``take(p)`` of each group's params ``p``; on ``meta`` devices, where
+    ``spmd.per_group`` runs the first group only, its result stands for
+    every group's."""
+    first = take(ps[0])
+    return [first if i and g.home.type == "meta" else take(p)
+            for i, (g, p) in enumerate(zip(groups, ps))]
 
 
 def _checkpointed(fn, *args):
@@ -215,11 +231,11 @@ def _grouped(cfg: ModelConfig) -> bool:
 
 
 def _stack_forward(params, x, cfg: ModelConfig, positions, *,
-                   use_kernel=False):
+                   use_kernel=False, causal_skip=False):
     """The layers, then the final norm."""
     layers = _unstack(params["layers"], cfg.num_layers)
     step = functools.partial(_layer_forward, cfg=cfg, positions=positions,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, causal_skip=causal_skip)
     x = _run_stack(step, layers, x, cfg)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
@@ -247,7 +263,7 @@ def _run_stack(step, layers: list, x, cfg: ModelConfig):
 
 
 def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
-               moe_aux_weight: float = 0.01):
+               causal_skip=False, moe_aux_weight: float = 0.01):
     """Next-token (decoder) or masked-position (encoder) cross-entropy, in
     float32, plus ``moe_aux_weight`` times the router balance loss of the
     first layer for MoE models.
@@ -257,7 +273,8 @@ def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
     ``"loss_mask"`` (B, L).  ``use_kernel`` runs the attention and SSD
     forwards through the CUDA kernels (``attention_trainable``,
     ``ssd_trainable``); their backward passes are autograd through the
-    plain versions, as in the reference.
+    plain versions, as in the reference.  ``causal_skip`` runs the plain
+    attention's triangular schedule (``attention.chunked_mha``).
 
     On ``ShardedTensor`` params and batch (``repro_torch.distributed.spmd``)
     the loss is that of the whole batch, computed by the data groups in
@@ -265,11 +282,12 @@ def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
     """
     if spmd.is_sharded(params):
         return _sharded_train_loss(params, batch, cfg, use_kernel,
-                                   moe_aux_weight)
+                                   moe_aux_weight, causal_skip)
     x = _embed_in(params, batch, cfg)
     L = x.shape[1]
     positions = torch.arange(L, dtype=torch.float32, device=x.device)
-    h = _stack_forward(params, x, cfg, positions, use_kernel=use_kernel)
+    h = _stack_forward(params, x, cfg, positions, use_kernel=use_kernel,
+                       causal_skip=causal_skip)
     logits = _lm_logits(params, h, cfg)
     labels = batch["labels"].long()  # < vocab_size, never a pad column
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -287,7 +305,7 @@ def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
 
 
 def _sharded_train_loss(params, batch, cfg: ModelConfig, use_kernel: bool,
-                        moe_aux_weight: float):
+                        moe_aux_weight: float, causal_skip: bool = False):
     """``train_loss`` on sharded params and batch (the design is in
     ``repro_torch.distributed.spmd``).  Each data group's terms, the summed
     negative log-likelihood and token count (and, for MoE models, the
@@ -299,36 +317,34 @@ def _sharded_train_loss(params, batch, cfg: ModelConfig, use_kernel: bool,
     with spmd.step_scope():
         ps = [spmd.views(params, g, layout) for g in groups]
         bs = [spmd.views(batch, g, layout) for g in groups]
-        xs, positions = [], []
-        for g, p, b in zip(groups, ps, bs):
-            with g.active():
-                xs.append(_embed_in(p, b, cfg))
-                positions.append(torch.arange(xs[-1].shape[1],
-                                              dtype=torch.float32,
-                                              device=g.home))
-        layers = list(zip(*(_unstack(p["layers"], cfg.num_layers)
-                            for p in ps)))
+        xs = spmd.per_group(groups, lambda g, p, b: _embed_in(p, b, cfg),
+                            ps, bs)
+        positions = [torch.arange(x.shape[1], dtype=torch.float32,
+                                  device=g.home) for g, x in zip(groups, xs)]
+        layers = list(zip(*_per_group_params(
+            ps, groups, lambda p: _unstack(p["layers"], cfg.num_layers))))
         step = functools.partial(_layer_forward_groups, groups=groups,
                                  cfg=cfg, positions=positions,
-                                 use_kernel=use_kernel)
+                                 use_kernel=use_kernel,
+                                 causal_skip=causal_skip)
         hs = _run_stack(step, layers, xs, cfg)
-        terms = []
-        for g, p, b, h, x in zip(groups, ps, bs, hs, xs):
-            with g.active():
-                logits = _lm_logits(p, rms_norm(h, p["final_norm"],
-                                                cfg.norm_eps), cfg)
-                labels = b["labels"].long()
-                logp = torch.log_softmax(logits.float(), dim=-1)
-                ll = logp.gather(-1, labels[..., None])[..., 0]
-                mask = b.get("loss_mask")
-                mask = torch.ones_like(ll) if mask is None else mask.to(
-                    ll.dtype)
-                t = [-(ll * mask).sum()[None], mask.sum()[None]]
-                if cfg.is_moe:
-                    t += moe_mod.router_sums(
-                        layer_slice(p["layers"]["moe"], 0), x, cfg)
-                terms.append(torch.cat(t))
-        total = spmd.all_reduce(terms, groups[0].home)
+
+        def terms(g, p, b, h, x):
+            logits = _lm_logits(p, rms_norm(h, p["final_norm"],
+                                            cfg.norm_eps), cfg)
+            labels = b["labels"].long()
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            ll = logp.gather(-1, labels[..., None])[..., 0]
+            mask = b.get("loss_mask")
+            mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+            t = [-(ll * mask).sum()[None], mask.sum()[None]]
+            if cfg.is_moe:
+                t += moe_mod.router_sums(layer_slice(p["layers"]["moe"], 0),
+                                         x, cfg)
+            return torch.cat(t)
+
+        total = spmd.all_reduce(spmd.per_group(groups, terms, ps, bs, hs,
+                                               xs), groups[0].home)
     loss = total[0] / torch.clamp(total[1], min=1.0)
     if cfg.is_moe:
         E = cfg.moe_experts
@@ -376,8 +392,17 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, *,
     (B, 1, V) and the caches stacked over layers.  As in the reference,
     each layer's caches come from re-running its mixers in cache-filling
     mode; ``use_kernel`` selects the CUDA kernels for the full-sequence
-    attention and SSD.
+    attention and SSD.  Like the reference's, it takes no
+    ``causal_skip``.
+
+    On ``ShardedTensor`` params and batch (``repro_torch.distributed.spmd``)
+    the data groups run in lockstep; the logits come back as a
+    ``ShardedTensor`` split over the batch (all-gathered over ``vocab``)
+    and the caches as ``ShardedTensor``\\ s laid out by
+    ``launch.steps.cache_pspecs``.
     """
+    if spmd.is_sharded(params):
+        return _sharded_prefill(params, batch, cfg, max_len, use_kernel)
     x = _embed_in(params, batch, cfg)
     B, L = x.shape[:2]
     positions = torch.arange(L, dtype=torch.float32, device=x.device)
@@ -396,80 +421,50 @@ def _prefill_layer(p, cache: LayerCaches, x, *, cfg, positions, use_kernel):
     """One layer over the sequence; writes its caches into ``cache`` (views
     of the zeroed stacked caches)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a = s = None
     if cfg.mixer in ("attn", "hybrid"):
         a = attn_mod.attention_forward(p["attn"], h, cfg, positions,
                                        use_kernel=use_kernel)
-        _fill_kv(p["attn"], h, cfg, positions, cache.attn)
+        k, v = _sequence_kv(p["attn"], h, cfg, positions, cache.attn.k)
+        cache.attn.k[:, :, :k.shape[2]] = k
+        cache.attn.v[:, :, :v.shape[2]] = v
     if cfg.mixer in ("ssm", "hybrid"):
-        s = _ssm_prefill(p["ssm"], h, cfg, cache.ssm, use_kernel)
+        s = ssm_mod.ssm_forward(p["ssm"], h, cfg, use_kernel=use_kernel)
+        tail, w, Bg = ssm_mod.prefill_streams(p["ssm"], h, cfg)
+        cache.ssm.conv.copy_(tail)
+        cache.ssm.state.copy_(ssm_mod.terminal_state(w, Bg, cfg))
+    return _ffn(p, x + _mixer_out(p, a, s, cfg), cfg)
+
+
+def _mixer_out(p, a, s, cfg: ModelConfig):
     if cfg.mixer == "attn":
-        mix = a
-    elif cfg.mixer == "ssm":
-        mix = s
-    else:
-        mix = _mix(p, a, s, cfg)
-    return _ffn(p, x + mix, cfg)
+        return a
+    if cfg.mixer == "ssm":
+        return s
+    return _mix(p, a, s, cfg)
 
 
-def _fill_kv(p, h, cfg, positions, cache: attn_mod.KVCache) -> None:
-    """Write the sequence's keys and values into the (zeroed) cache.
+def _sequence_kv(p, h, cfg, positions, like):
+    """The sequence's keys and values for the cache (B, Hkv, n, hd), rope'd
+    at full ``hd``, ``n = min(L, W)`` for a cache ``like`` of W slots.
 
     When L >= W only the last W positions are kept, in slots 0..W-1, as
     in the reference; decode then writes position ``pos`` to slot
     ``pos % W``, so for L % W != 0 the first decode step overwrites a key
     that is not the oldest.  The port reproduces that quirk of the
-    reference (ROADMAP.md, queue 3).
+    reference (ROADMAP.md, queue 3).  On a sharded ``wk``/``wv`` the
+    projections are all-gathered (``spmd.einsum``).
     """
     L = h.shape[1]
-    k = attn_mod._proj_heads(h, p["wk"])
-    v = attn_mod._proj_heads(h, p["wv"])
+    k = spmd.einsum("bld,dhk->blhk", h, p["wk"], attn_mod._proj_heads)
+    v = spmd.einsum("bld,dhk->blhk", h, p["wv"], attn_mod._proj_heads)
     if cfg.qk_norm:
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        k = rms_norm(k, spmd.local(p["k_norm"]), cfg.norm_eps)
     cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
     k = apply_rope(k, cos[:, None], sin[:, None]).transpose(1, 2)
     v = v.transpose(1, 2)
-    n = min(L, cache.k.shape[2])
-    cache.k[:, :, :n] = k[:, :, L - n:]
-    cache.v[:, :, :n] = v[:, :, L - n:]
-
-
-def _ssm_prefill(p, h, cfg, cache: ssm_mod.SSMCache, use_kernel):
-    """Run the SSM over the sequence, then write the conv tail and the
-    terminal SSD state into ``cache``."""
-    out = ssm_mod.ssm_forward(p, h, cfg, use_kernel=use_kernel)
-    tail, state = _ssm_state_from_sequence(p, h, cfg)
-    cache.conv.copy_(tail)
-    cache.state.copy_(state)
-    return out
-
-
-def _ssm_state_from_sequence(p, h, cfg):
-    B, L, _ = h.shape
-    _, xs, Bm, Cm, dt = ssm_mod.preconv_streams(p, h, cfg)
-    xbc = torch.cat([xs, Bm, Cm], dim=-1)
-    K = cfg.ssm_conv
-    tail = (xbc[:, L - (K - 1):] if L >= K - 1
-            else F.pad(xbc, (0, 0, K - 1 - L, 0)))
-    w_cat, b_cat = ssm_mod.conv_cat_weights(p, cfg)
-    xbc_c = F.silu(ssm_mod._causal_conv(xbc, w_cat, b_cat))
-    din = cfg.ssm_inner
-    gs = cfg.ssm_groups * cfg.ssm_state
-    xs, Bm, Cm = torch.split(xbc_c, [din, gs, gs], dim=-1)
-    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
-    G, S = cfg.ssm_groups, cfg.ssm_state
-    xh = xs.reshape(B, L, H, Pd).float()
-    Bg = Bm.reshape(B, L, G, S).float()
-    dth = F.softplus(dt + p["dt_bias"][None, None]).float()
-    A = -torch.exp(p["A_log"].float())
-    l = dth * A[None, None]
-    # terminal state = sum_s exp(cumsum_rev) dt x B  (one associative pass)
-    cum = torch.cumsum(l, dim=1)
-    wfin = torch.exp(cum[:, -1:] - cum)                       # (B, L, H)
-    w = (wfin * dth)[..., None] * xh                          # (B, L, H, P)
-    rep = H // G
-    wg = w.reshape(B, L, G, rep, Pd)
-    state = torch.einsum("blgrp,blgs->bgrps", wg, Bg)
-    return tail, state.reshape(B, H, Pd, S)
+    n = min(L, like.shape[-2])
+    return k[:, :, L - n:], v[:, :, L - n:]
 
 
 @torch.no_grad()
@@ -478,14 +473,19 @@ def decode_step(params, tokens, caches: LayerCaches, cfg: ModelConfig):
 
     The caches are updated in place (the reference returns new arrays):
     the returned ``LayerCaches`` shares the input's buffers, except the
-    attention ``pos``, which is a new tensor one larger.
+    attention ``pos``, which is a new tensor one larger.  On sharded
+    params, tokens and caches (as ``prefill`` returns them) the logits are
+    a ``ShardedTensor`` split over the batch.
     """
+    if spmd.is_sharded(params):
+        return _sharded_decode(params, tokens, caches, cfg)
     x = F.embedding(tokens[:, None], params["embed"])
     new_pos = []
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
         cache = _layer_cache(caches, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a = s = None
         if cfg.mixer in ("attn", "hybrid"):
             a, new_attn = attn_mod.attention_decode(lp["attn"], h, cfg,
                                                     cache.attn)
@@ -494,15 +494,180 @@ def decode_step(params, tokens, caches: LayerCaches, cfg: ModelConfig):
             s, new_ssm = ssm_mod.ssm_decode(lp["ssm"], h, cfg, cache.ssm)
             cache.ssm.conv.copy_(new_ssm.conv)
             cache.ssm.state.copy_(new_ssm.state)
-        if cfg.mixer == "attn":
-            mix = a
-        elif cfg.mixer == "ssm":
-            mix = s
-        else:
-            mix = _mix(lp, a, s, cfg)
-        x = _ffn(lp, x + mix, cfg)
+        x = _ffn(lp, x + _mixer_out(lp, a, s, cfg), cfg)
     attn = caches.attn
     if attn is not None:
         attn = attn_mod.KVCache(attn.k, attn.v, torch.stack(new_pos))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(params, h, cfg)[:, 0], LayerCaches(attn, caches.ssm)
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode on sharded params and caches
+# ---------------------------------------------------------------------------
+
+
+def _sharded_caches(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """Zeroed stacked caches as ``ShardedTensor``\\ s laid out by
+    ``cache_pspecs`` (every position its own local tensors)."""
+    from repro_torch.launch.steps import cache_pspecs
+
+    like = init_caches(cfg, batch, max_len, torch.device("meta"))
+    specs = cache_pspecs(cfg, mesh, batch)
+    return LayerCaches(*(None if c is None else type(c)(*(
+        spmd.zeros(a.shape, a.dtype, NamedSharding(mesh, sp))
+        for a, sp in zip(c, cs))) for c, cs in zip(like, specs)))
+
+
+def _runners(layout, batch):
+    """The data groups that run (one per distinct slice of the batch) and
+    each one's batch rows."""
+    groups = layout.runners(batch)
+    lead = tree.leaves(batch)[0]
+    return groups, [lead.index(g.positions[0])[0] for g in groups]
+
+
+def _sharded_prefill(params, batch, cfg: ModelConfig, max_len: int,
+                     use_kernel: bool):
+    """``prefill`` on sharded params and batch (the design is in
+    ``repro_torch.distributed.spmd``).  Each data group runs its rows on
+    its home, the layers in lockstep (a MoE layer routes the whole batch).
+    Each cache piece is written on its own device: keys and values rope'd
+    at full ``hd`` on the home, then split over kv heads or ``hd`` (with
+    head-local attention, each model shard writes its own kv heads); the
+    conv tail split over channels; the SSD state per state shard from
+    that shard's heads (or head-dimension slice) and their groups' B
+    columns."""
+    layout = spmd.Layout.of(params)
+    lead = tree.leaves(batch)[0]
+    groups, rows = _runners(layout, batch)
+    B, L = lead.shape[:2]
+    caches = _sharded_caches(cfg, layout.mesh, B, max_len)
+    with spmd.step_scope():
+        ps = [spmd.views(params, g, layout) for g in groups]
+        xs = spmd.per_group(groups, lambda g, p: _embed_in(
+            p, spmd.views(batch, g, layout), cfg), ps)
+        positions = [torch.arange(L, dtype=torch.float32, device=g.home)
+                     for g in groups]
+        for i in range(cfg.num_layers):
+            lps = _per_group_params(ps, groups, lambda p: layer_slice(
+                p["layers"], i))
+            ys = spmd.per_group(
+                groups, lambda g, lp, x, pos, r: x + _prefill_mixers_sharded(
+                    lp, x, cfg, pos, caches, i, g, r, use_kernel),
+                lps, xs, positions, rows)
+            xs = _ffn_groups(lps, ys, groups, cfg)
+        last = spmd.per_group(groups, lambda g, p, x: _lm_logits(
+            p, rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps), cfg),
+            ps, xs)
+        logits = {(r.start, r.stop): v for r, v in zip(rows, last)}
+    if caches.attn is not None:
+        for t in caches.attn.pos.shards.flat:
+            t.fill_(L)
+    return _sharded_logits(logits, lead, (B, 1, cfg.padded_vocab)), caches
+
+
+def _sharded_logits(values: dict, lead, shape):
+    """Logits ``{rows: tensor}`` as a ShardedTensor split over the batch
+    as ``lead`` (the batch's first leaf) is."""
+    sh = NamedSharding(lead.mesh, PartitionSpec(lead.sharding.spec[0]
+                                                if lead.sharding.spec
+                                                else None))
+    return spmd.from_rows(values, sh, shape)
+
+
+def _prefill_mixers_sharded(p, x, cfg: ModelConfig, positions, caches,
+                            layer: int, group, rows, use_kernel):
+    """One data group's mixers over the sequence, with their caches."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a = s = None
+    if cfg.mixer in ("attn", "hybrid"):
+        pa, kv = p["attn"], caches.attn
+        a = attn_mod.attention_forward(pa, h, cfg, positions,
+                                       use_kernel=use_kernel)
+        if spmd.head_local(pa):
+            parts = []
+            for j, dev in enumerate(group.devices):
+                with spmd.on_shard(j, dev):
+                    w = {k: pa[k].parts[j] for k in ("wk", "wv")}
+                    kn = spmd.local(pa.get("k_norm"))
+                    w["k_norm"] = None if kn is None else kn.to(dev)
+                    parts.append(_sequence_kv(w, h.to(dev), cfg,
+                                              positions.to(dev), kv.k))
+            spmd.write_rows(kv.k, layer, rows, parts=[k for k, _ in parts])
+            spmd.write_rows(kv.v, layer, rows, parts=[v for _, v in parts])
+        else:
+            k, v = _sequence_kv(pa, h, cfg, positions, kv.k)
+            spmd.write_rows(kv.k, layer, rows, k)
+            spmd.write_rows(kv.v, layer, rows, v)
+    if cfg.mixer in ("ssm", "hybrid"):
+        s = ssm_mod.ssm_forward(p["ssm"], h, cfg, use_kernel=use_kernel)
+        tail, w, Bg = ssm_mod.prefill_streams(p["ssm"], h, cfg)
+        spmd.write_rows(caches.ssm.conv, layer, rows, tail)
+        state = caches.ssm.state
+        k = spmd.Layout(state.mesh).model_dim(state)
+        if k is None:
+            spmd.write_rows(state, layer, rows,
+                            ssm_mod.terminal_state(w, Bg, cfg))
+        else:
+            m = len(group.devices)
+            H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+            parts = []
+            for j, dev in enumerate(group.devices):
+                with spmd.on_shard(j, dev):
+                    hs, pslice = slice(None), slice(None)
+                    if k == 2:
+                        hs = slice(j * H // m, (j + 1) * H // m)
+                    else:
+                        pslice = slice(j * Pd // m, (j + 1) * Pd // m)
+                    parts.append(ssm_mod.terminal_state_part(
+                        w, Bg, cfg, hs, pslice, dev))
+            spmd.write_rows(state, layer, rows, parts=parts)
+    return _mixer_out(p, a, s, cfg)
+
+
+def _sharded_decode(params, tokens, caches: LayerCaches, cfg: ModelConfig):
+    """``decode_step`` on sharded params, tokens (B,) and caches: the data
+    groups decode their rows in lockstep against their cache shards
+    (``attention.attention_decode_sharded``,
+    ``ssm.ssm_decode_sharded``); the FFN as in prefill."""
+    layout = spmd.Layout.of(params)
+    groups, rows = _runners(layout, tokens)
+    attn = caches.attn
+    with spmd.step_scope():
+        ps = [spmd.views(params, g, layout) for g in groups]
+        xs = spmd.per_group(groups, lambda g, p: spmd.embedding(
+            spmd.views(tokens, g, layout)[:, None], p["embed"]), ps)
+
+        def mixers(g, lp, x, r, i):
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a = s = None
+            if attn is not None:
+                a = attn_mod.attention_decode_sharded(
+                    lp["attn"], h, cfg, attn.k, attn.v,
+                    attn.pos.shards[g.positions[0]][i], i, g, r)
+            if caches.ssm is not None:
+                s = ssm_mod.ssm_decode_sharded(lp["ssm"], h, cfg,
+                                               caches.ssm.conv,
+                                               caches.ssm.state, i, g, r)
+            return x + _mixer_out(lp, a, s, cfg)
+
+        for i in range(cfg.num_layers):
+            lps = _per_group_params(ps, groups, lambda p: layer_slice(
+                p["layers"], i))
+            ys = spmd.per_group(groups, lambda g, lp, x, r: mixers(
+                g, lp, x, r, i), lps, xs, rows)
+            xs = _ffn_groups(lps, ys, groups, cfg)
+        last = spmd.per_group(groups, lambda g, p, x: _lm_logits(
+            p, rms_norm(x, p["final_norm"], cfg.norm_eps), cfg)[:, 0], ps, xs)
+        logits = {(r.start, r.stop): v for r, v in zip(rows, last)}
+    if attn is not None:
+        pos = attn.pos
+        shards = np.empty(pos.shards.shape, dtype=object)
+        for at in np.ndindex(shards.shape):
+            shards[at] = pos.shards[at] + 1
+        attn = attn_mod.KVCache(attn.k, attn.v, spmd.ShardedTensor(
+            shards, pos.sharding, pos.shape))
+    return (_sharded_logits(logits, tokens, (tokens.shape[0],
+                                             cfg.padded_vocab)),
+            LayerCaches(attn, caches.ssm))

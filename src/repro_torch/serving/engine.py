@@ -7,6 +7,14 @@ token per step until every request of the wave has its
 ``max_new_tokens``.  The schedule is the reference's
 (``repro/serving/engine.py``) exactly, so both engines produce the same
 tokens from the same weights.
+
+Sharded params (``ShardedTensor``\\ s laid out by
+``train.trainer.make_shardings``) are served under their mesh's ambient
+``mesh_context``, as the reference's engine runs unmodified on a mesh:
+each wave's prompt batch and each step's tokens are laid out over the
+``batch`` axes, prefill and decode run sharded
+(``transformer.prefill``/``decode_step``), the caches stay sharded, and
+the logits are gathered to the engine's device for the greedy choice.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.estimator import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.models import transformer
 
 
@@ -38,13 +48,15 @@ class ServeEngine:
     """Greedy generation over ``transformer.prefill``/``decode_step``.
 
     Args:
-      cfg, params: the model and its parameter tree (moved to ``device``).
+      cfg, params: the model and its parameter tree (moved to ``device``;
+        sharded params stay where they are, see the module docstring).
         Prompts are tokens, so an embeddings-input model (an encoder or a
         VLM backbone) raises ``ValueError``.
       batch: requests per wave; max_len: cache length (prompt + new tokens).
       greedy: only greedy decoding exists (as in the reference).
       device: ``None`` means ``"cuda"`` and raises without a card; pass
-        ``"cpu"`` to run on the CPU.
+        ``"cpu"`` to run on the CPU.  With sharded params, where the
+        prompts start from and the logits are gathered to.
       use_kernel: prefill through the CUDA kernels (flash attention and
         chunked SSD).  ``False`` runs the plain chunked paths, which is
         what the reference's engine runs.
@@ -60,19 +72,39 @@ class ServeEngine:
                 f"ServeEngine prefills from token prompts only")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = _to_device(params, self.device)
+        self.sharded = spmd.is_sharded(params)
+        self.params = params if self.sharded else _to_device(params,
+                                                             self.device)
         self.batch = batch
         self.max_len = max_len
         self.greedy = greedy
         self.use_kernel = use_kernel
 
+    def _lay_out(self, tokens):
+        """``tokens`` split over the ambient mesh's batch axes (sharded
+        params), or as they are."""
+        if not self.sharded:
+            return tokens
+        if shd.active_mesh() is None:
+            raise ValueError("sharded params are served under their mesh's "
+                             "mesh_context")
+        return spmd.device_put(tokens, shd.named_sharding(
+            tokens.shape, ("batch",) + (None,) * (tokens.dim() - 1)))
+
+    def _gathered(self, out):
+        logits, caches = out
+        if self.sharded:
+            logits = spmd.gather(logits, self.device)
+        return logits, caches
+
     def _prefill(self, tokens):
-        return transformer.prefill(self.params, {"tokens": tokens}, self.cfg,
-                                   max_len=self.max_len,
-                                   use_kernel=self.use_kernel)
+        return self._gathered(transformer.prefill(
+            self.params, {"tokens": self._lay_out(tokens)}, self.cfg,
+            max_len=self.max_len, use_kernel=self.use_kernel))
 
     def _decode(self, tokens, caches):
-        return transformer.decode_step(self.params, tokens, caches, self.cfg)
+        return self._gathered(transformer.decode_step(
+            self.params, self._lay_out(tokens), caches, self.cfg))
 
     def _sample(self, logits) -> np.ndarray:
         return torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
