@@ -193,7 +193,11 @@ Phases, each of which fails the run on any miss:
                  test's tolerances (loss, gradients, params outside
                  AdamW's eps band); the same for granite-moe-3b after 5h
                  on a 2 x 4 mesh (expert parallelism, 10 experts a shard;
-                 head-local attention, 6/2 heads a shard);
+                 head-local attention, 6/2 heads a shard); then hymba's
+                 cell again with ``seq_parallel`` (the residual stream
+                 split by sequence over the model axis between the
+                 layers): the same gates, its step ms and log beside the
+                 non-SP cell's, the log entries that moved;
 5e'. sharded serving -- ``ServeEngine.generate`` on ShardedTensor params
                  under their mesh's ``mesh_context`` (sharded prefill and
                  decode on ``cache_pspecs``'s layouts): hymba-1.5b at full
@@ -213,6 +217,19 @@ Phases, each of which fails the run on any miss:
                  2 x 4 mesh (head-local attention, kv over heads, expert
                  parallelism: 2 x 4 x 32 = 256 attention launches a wave
                  at (4, 6, 2, 2048, 2048, 64));
+5e''. dp-only -- smollm-135m at full width and depth (30 layers) under
+                 ``parallel_policy="dp_only"`` on a 2 x 4 (data, model)
+                 mesh of cuda:0, the batch over both axes (8 data groups
+                 of one position; every weight replicated but the tied
+                 table, split 4 ways over vocab): after 5b for smollm on
+                 one card (the single-device engine), 5e's float32 gates
+                 at 2 layers with 8 x 512 tokens (a row a group), 3 bf16
+                 AdamW steps of 8 x 2 x 2048 tokens (zero1 over all 8
+                 positions; 8 x ``remat_forwards`` x 3 attention
+                 launches), and the serving cell through the sharded
+                 ``ServeEngine`` (waves of 8, a row a group: 8 attention
+                 launches a layer a wave), beside the single-device run
+                 (after 5h);
 5f. MoE serving -- ``ServeEngine.generate`` on granite-moe-3b-a800m (40
                  experts, top 8) at full width and depth in bfloat16, the
                  hymba cell's shape: 32 ``mma`` attention launches per
@@ -240,15 +257,17 @@ Phases, each of which fails the run on any miss:
                  new tokens, every attention (D = 64, 80, 128) and SSD
                  (S = 128) launch of the ``mma`` variant, finite logits;
 5j. dry-run  -- ``python -m repro_torch.launch.dryrun`` (no card: meshes of
-                 ``meta`` devices) for four cells of the single-pod mesh
+                 ``meta`` devices) for five cells of the single-pod mesh
                  (16 x 16) at once, one process each: hymba-1.5b
                  ``decode_32k`` and ``long_500k``, granite-moe-3b
-                 ``prefill_32k``, smollm-135m ``train_4k``; each record
-                 ``ok``, its seconds printed, the phase under 90 s;
+                 ``prefill_32k``, smollm-135m ``train_4k`` under the tp
+                 and the dp-only policy; each record ``ok``, its seconds
+                 printed, the phase under 90 s;
 6. LM kernels -- each LM kernel's time at every LM path's shapes (hymba's
-                 serving and training, granite's serving and training, the
-                 zoo's waves), beside the simt design at the same shape
-                 (timed in turns), its plain version, the PyTorch library
+                 serving and training, granite's serving and training,
+                 smollm's serving and dp-only paths, the zoo's waves),
+                 beside the simt design at the same shape (timed in
+                 turns), its plain version, the PyTorch library
                  call where there is one, its bound, and each SSD stage's
                  time;
 7. report     -- one JSON line of per-kernel numbers, the card's name and
@@ -412,14 +431,33 @@ SHARD_BF16_RTOL = 1e-2
 # against the single-device run at tests/test_torch_lm.py's TOL
 SERVE_CHECK_STEPS = 4
 SERVE_TOL = dict(rtol=2e-4, atol=2e-4)
-# the dry-run phase: four cells of the single-pod mesh, one process each,
-# all at once; the phase's bound
-DRYRUN_CELLS = (("hymba-1.5b", "decode_32k"), ("hymba-1.5b", "long_500k"),
-                ("granite-moe-3b-a800m", "prefill_32k"),
-                ("smollm-135m", "train_4k"))
+# the dp-only path: smollm-135m (134.5 M parameters, too small to
+# amortise tensor parallelism) at full width and depth under
+# parallel_policy="dp_only" on a 2 x 4 (data, model) mesh of cuda:0, the
+# batch over both axes: 8 data groups of one position, every weight
+# replicated but the tied table (vocab over the model axis's 4).  Its
+# float32 gates at 2 layers with 8 x 512 tokens (a row a group), at the
+# reference tests' tolerances; 3 bf16 AdamW steps of 8 groups x 2 x 2048
+# tokens, zero1 (over all 8 positions); the serving cell through the
+# sharded ServeEngine, waves of 8 (a row a group), beside the
+# single-device engine's
+DP_ONLY_ARCH, DP_ONLY_MESH = "smollm-135m", (2, 4)
+# the seq_parallel variant of hymba's sharded2x2-8layers cell: the
+# residual stream split by sequence over the model axis between the layers
+# (training only, as in the reference), the same float32 gate, steps and
+# report, beside the non-SP cell's
+# the dry-run phase: five cells of the single-pod mesh (smollm train_4k
+# under dp-only too), one process each, all at once; the phase's bound
+DRYRUN_CELLS = (("hymba-1.5b", "decode_32k", ()),
+                ("hymba-1.5b", "long_500k", ()),
+                ("granite-moe-3b-a800m", "prefill_32k", ()),
+                ("smollm-135m", "train_4k", ()),
+                ("smollm-135m", "train_4k", ("parallel_policy=dp_only",)))
 DRYRUN_LIMIT_S = 90.0
 # the single-device serving phases' numbers, for the sharded ones
 SERVED = {}
+# the sharded training phases' step ms and collective logs, by cell
+SHARDED = {}
 # name fragments of the port's kernels in a profiler trace
 PORT_KERNELS = ("flash_attn", "ssd_", "lqt_combine", "lqt_scan")
 
@@ -820,6 +858,8 @@ FA_CASES = [
     (8, 24, 8, 2048, 2048, 64, True, None),
     (4, 24, 8, 2048, 2048, 64, True, None),
     (2, 9, 3, 2048, 2048, 64, True, None),
+    (8, 9, 3, 2048, 2048, 64, True, None),
+    (1, 9, 3, 2048, 2048, 64, True, None),
     (2, 32, 8, 2048, 2048, 128, True, None),
     (2, 32, 8, 2048, 2048, 80, True, 4096),
     (2, 48, 4, 2048, 2048, 128, True, None),
@@ -3525,14 +3565,29 @@ def shard_mesh(shape):
                          dtype=object).reshape(shape), ("data", "model"))
 
 
+def policy_context(cfg, mesh):
+    """``mesh_context(mesh)`` under ``cfg.parallel_policy`` (dp-only: the
+    batch over every axis)."""
+    from repro_torch.distributed import mesh_context
+    from repro_torch.distributed import sharding as shd
+
+    return mesh_context(mesh, **shd.policy_kw(cfg.parallel_policy))
+
+
+def data_groups(cfg, shape) -> int:
+    """The data groups of a (data, model) mesh of ``shape``: the data axis,
+    or every position under dp-only."""
+    return shape[0] * (shape[1] if cfg.parallel_policy == "dp_only" else 1)
+
+
 def shard_state(cfg, tcfg, mesh, params) -> tuple:
     """``params`` and a fresh AdamW state laid out for ``mesh`` by
-    ``make_shardings`` (ShardedTensors)."""
-    from repro_torch.distributed import mesh_context, spmd
+    ``make_shardings`` (ShardedTensors) under ``cfg``'s policy."""
+    from repro_torch.distributed import spmd
     from repro_torch.train import adamw_init
     from repro_torch.train.trainer import make_shardings
 
-    with mesh_context(mesh):
+    with policy_context(cfg, mesh):
         p_sh, o_sh = make_shardings(cfg, tcfg, mesh)
         opt = spmd.device_put(adamw_init(params), o_sh)
         return spmd.device_put(params, p_sh), opt
@@ -3545,12 +3600,12 @@ def sharded_steps(cfg, tcfg, mesh, params, opt, batches, loss_fn,
     ``on_step(i, metrics)`` after step ``i``.  Returns the params, the
     optimizer state and each step's metrics."""
     from repro_torch import tree
-    from repro_torch.distributed import mesh_context, spmd
+    from repro_torch.distributed import spmd
     from repro_torch.distributed import sharding as shd
     from repro_torch.train import make_train_step
 
     out = []
-    with mesh_context(mesh):
+    with policy_context(cfg, mesh):
         b_sh = tree.tree_map(lambda x: shd.named_sharding(
             x.shape, ("batch",) + (None,) * (x.dim() - 1)), batches[0])
         step = make_train_step(cfg, tcfg, loss_fn)
@@ -3566,11 +3621,11 @@ def sharded_steps(cfg, tcfg, mesh, params, opt, batches, loss_fn,
 
 def sharded_check(cfg, shape) -> None:
     """The float32 gate: one sharded step of ``cfg`` at full width and
-    SHARD_CHECK_LAYERS layers, 2 x SHARD_CHECK_SEQ tokens, through the
-    kernels, against the single-device step on the same weights and
-    batch: the loss, every gradient (from AdamW's first moment) and the
-    params (outside the AdamW eps band) at the reference test's
-    tolerances."""
+    SHARD_CHECK_LAYERS layers, a row of SHARD_CHECK_SEQ tokens a data
+    group, through the kernels, against the single-device step on the
+    same weights and batch: the loss, every gradient (from AdamW's first
+    moment) and the params (outside the AdamW eps band) at the reference
+    test's tolerances."""
     from repro_torch import tree
     from repro_torch.config import TrainConfig
     from repro_torch.distributed import spmd
@@ -3585,9 +3640,10 @@ def sharded_check(cfg, shape) -> None:
                                 use_kernel=True)
     params = transformer.init(
         cfg32, torch.Generator(device="cuda").manual_seed(SEED))
+    rows = data_groups(cfg, shape)
     batch = tree.tree_map(lambda t: t.cuda(), LMDataPipeline(
         vocab_size=cfg.vocab_size, seq_len=SHARD_CHECK_SEQ,
-        global_batch=shape[0], seed=SEED).batch_at(0))
+        global_batch=rows, seed=SEED).batch_at(0))
     copy = tree.tree_map(lambda t: t.clone(), params)
     p1, o1, m1 = make_train_step(cfg32, tcfg, loss_fn)(
         copy, adamw_init(copy), batch)
@@ -3612,7 +3668,7 @@ def sharded_check(cfg, shape) -> None:
         band_miss += int((out & near).sum())
         miss += int((out & ~near).sum())
         del a, ma
-    log(f"  float32 check, {SHARD_CHECK_LAYERS} layers, {shape[0]} x "
+    log(f"  float32 check, {SHARD_CHECK_LAYERS} layers, {rows} x "
         f"{SHARD_CHECK_SEQ} tokens, one step: loss {l2:.7f} sharded vs "
         f"{l1:.7f} single-device (rtol {SHARD_LOSS_TOL['rtol']:.0e}); "
         f"gradients max|diff| / max|g| per leaf {g_err:.3e} (tol "
@@ -3625,25 +3681,29 @@ def sharded_check(cfg, shape) -> None:
                              "single-device step")
 
 
-def sharded_training_path(cfg, fa_kernel, ssd_kernel) -> tuple:
+def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
+                          layers: int = SHARD_LAYERS) -> tuple:
     """The sharded training step (``repro_torch.distributed.spmd``) on
-    ``cfg`` at full width: the float32 gate, then SHARD_STEPS bf16 AdamW
-    steps at SHARD_LAYERS layers on its SHARD_MESHES mesh of cuda:0,
-    SHARD_BATCH x 2048 tokens a data shard: finite losses, the step-1 loss
-    within SHARD_BF16_RTOL of the single-device loss, exact launches of
-    each LM kernel (per data group and remat forward: one, or one per model
-    shard where attention is head-local), ms and tokens/s a step, peak
-    memory and the collective log per step.  Returns the config a launch
-    runs at (heads per shard), the batch per launch and the launches."""
+    ``cfg`` (its policy and ``seq_parallel``) at full width: the float32
+    gate, then SHARD_STEPS bf16 AdamW steps at ``layers`` layers on a
+    ``shape`` mesh of cuda:0 (default: its SHARD_MESHES mesh), SHARD_BATCH
+    x 2048 tokens a data group: finite losses, the step-1 loss within
+    SHARD_BF16_RTOL of the single-device loss, exact launches of each LM
+    kernel (per data group and remat forward: one, or one per model shard
+    where attention is head-local), ms and tokens/s a step, peak memory
+    and the collective log per step (kept in SHARDED).  Returns the config
+    a launch runs at (heads per shard), the batch per launch and the
+    launches."""
     from repro_torch.config import TrainConfig
     from repro_torch.models import transformer
 
-    shape = SHARD_MESHES[cfg.name]
-    d, m = shape
+    shape = shape or SHARD_MESHES[cfg.name]
+    m = shape[1]
+    d = data_groups(cfg, shape)
     sharded_check(cfg, shape)
     torch.cuda.empty_cache()
 
-    cfg8 = dataclasses.replace(cfg, num_layers=SHARD_LAYERS)
+    cfg8 = dataclasses.replace(cfg, num_layers=layers)
     tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=d * SHARD_BATCH,
                        learning_rate=3e-4, warmup_steps=1,
                        total_steps=SHARD_STEPS, zero1=True, seed=SEED)
@@ -3655,15 +3715,23 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel) -> tuple:
                for step in range(SHARD_STEPS)]
     with torch.no_grad():
         single = float(loss_fn(params, batches[0]))
-    head_local = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    dp_only = cfg.parallel_policy == "dp_only"
+    head_local = (not dp_only and cfg.num_heads % m == 0
+                  and cfg.num_kv_heads % m == 0)
     attn = d * (m if head_local else 1) * remat_forwards(cfg8) * SHARD_STEPS
     want = lm_kernel_launches(cfg8, d * remat_forwards(cfg8) * SHARD_STEPS)
     want["flash_attention"] = attn if want["flash_attention"] else 0
     tokens = d * SHARD_BATCH * TRAIN_SEQ
-    log(f"{cfg.name} at {SHARD_LAYERS} of {cfg.num_layers} layers (depth "
-        f"cut; full width), bf16, a (data, model) mesh of {d} x {m} "
-        f"cuda:0, {SHARD_BATCH} x {TRAIN_SEQ} tokens a data shard, zero1, "
-        f"{SHARD_STEPS} AdamW steps; attention "
+    depth = (f"{layers} of {cfg.num_layers} layers (depth cut; full width)"
+             if layers < cfg.num_layers else
+             f"full width and depth ({layers} layers)")
+    policy = (f"dp-only: the batch over both axes, {d} data groups, the "
+              f"table split over the model axis" if dp_only else
+              "seq_parallel: the residual stream split by sequence over "
+              "the model axis" if cfg.seq_parallel else "tp")
+    log(f"{cfg.name} at {depth}, bf16, a (data, model) mesh of "
+        f"{shape[0]} x {m} cuda:0 ({policy}), {SHARD_BATCH} x {TRAIN_SEQ} "
+        f"tokens a data group, zero1, {SHARD_STEPS} AdamW steps; attention "
         f"{'head-local, ' + str(cfg.num_heads // m) + '/' + str(cfg.num_kv_heads // m) + ' heads a shard' if head_local else 'at full heads a data group'}; "
         f"single-device step-1 loss {single:.5f}; on {card()}")
     starts, ends = [], []
@@ -3713,11 +3781,37 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel) -> tuple:
     if not (np.isfinite(losses).all() and rel <= SHARD_BF16_RTOL):
         raise AssertionError(f"sharded training: losses {losses}, single "
                              f"{single}")
+    SHARDED[cfg.name, cfg.parallel_policy, cfg.seq_parallel] = {
+        "ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3, "peak": peak,
+        "log": metrics[0]["collectives"]}
     at = (dataclasses.replace(cfg8, name=f"{cfg.name} head-local",
                               num_heads=cfg.num_heads // m,
                               num_kv_heads=cfg.num_kv_heads // m)
           if head_local else cfg8)
     return at, SHARD_BATCH, launches
+
+def seq_parallel_report(cfg) -> None:
+    """The seq_parallel cell's step ms and log a step beside the non-SP
+    cell's (SHARDED), with the entries that moved: each row-parallel
+    all-reduce of the stream becomes a reduce-scatter and an all-gather."""
+    base = SHARDED[cfg.name, cfg.parallel_policy, False]
+    sp = SHARDED[cfg.name, cfg.parallel_policy, True]
+    mb = {k: sum(c.bytes for c in v["log"]) / 1e6 for k, v in (
+        ("base", base), ("sp", sp))}
+    log(f"  seq_parallel vs not: {sp['ms']:.1f} vs {base['ms']:.1f} ms a "
+        f"step ({sp['tokens_per_s']:.0f} vs {base['tokens_per_s']:.0f} "
+        f"tokens/s), log {mb['sp']:.2f} vs {mb['base']:.2f} MB a step, peak "
+        f"{sp['peak'] / 1e9:.2f} vs {base['peak'] / 1e9:.2f} GB; on {card()}")
+    a, b = collections.Counter(sp["log"]), collections.Counter(base["log"])
+    for sign, diff in (("+", a - b), ("-", b - a)):
+        log(f"  entries {'added' if sign == '+' else 'gone'} under SP: "
+            + "; ".join(f"{n} x {c.kind} of {c.bytes / 1e6:.3f} MB over "
+                        f"{c.group}" for c, n in sorted(
+                            diff.items(), key=lambda cn: -cn[0].bytes
+                            * cn[1])))
+    if a == b:
+        raise AssertionError("seq_parallel ran the non-SP program")
+
 
 def serving_check(cfg, shape) -> None:
     """The sharded serving path's float32 gate: ``cfg`` at full width and
@@ -3728,7 +3822,7 @@ def serving_check(cfg, shape) -> None:
     single-device cache, and the greedy tokens."""
     from repro_torch import tree
     from repro_torch.config import TrainConfig
-    from repro_torch.distributed import mesh_context, spmd
+    from repro_torch.distributed import spmd
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import transformer
     from repro_torch.train.trainer import make_shardings
@@ -3737,7 +3831,8 @@ def serving_check(cfg, shape) -> None:
                                 num_layers=SHARD_CHECK_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = transformer.init(cfg32, gen)
-    toks = torch.randint(0, cfg.vocab_size, (shape[0], SHARD_CHECK_SEQ),
+    rows = data_groups(cfg, shape)
+    toks = torch.randint(0, cfg.vocab_size, (rows, SHARD_CHECK_SEQ),
                          generator=gen, device="cuda")
     max_len = SHARD_CHECK_SEQ + SERVE_CHECK_STEPS
     worst = {"logits": 0.0, "caches": 0.0}
@@ -3758,7 +3853,7 @@ def serving_check(cfg, shape) -> None:
                 close(x.shards[pos], y[x.index(pos)], "caches")
 
     mesh = shard_mesh(shape)
-    with mesh_context(mesh):
+    with policy_context(cfg, mesh):
         p_sh, _ = make_shardings(cfg32, TrainConfig(), mesh)
         sp = spmd.device_put(params, p_sh)
         l1, c1 = transformer.prefill(params, {"tokens": toks}, cfg32,
@@ -3780,7 +3875,7 @@ def serving_check(cfg, shape) -> None:
             cur1, cur2 = torch.argmax(l1, dim=-1), torch.argmax(g2, dim=-1)
             same.append(bool(torch.equal(cur1, cur2)))
         caches_close(c2, c1)
-    log(f"  float32 check, {SHARD_CHECK_LAYERS} layers, {shape[0]} x "
+    log(f"  float32 check, {SHARD_CHECK_LAYERS} layers, {rows} x "
         f"{SHARD_CHECK_SEQ} tokens, prefill + {SERVE_CHECK_STEPS} decode "
         f"steps: worst |diff| / (atol + rtol |single|) logits "
         f"{worst['logits']:.3e}, every cache shard {worst['caches']:.3e} "
@@ -3793,10 +3888,11 @@ def serving_check(cfg, shape) -> None:
                              f"tokens {same}")
 
 
-def sharded_serving_path(cfg, fa_kernel, ssd_kernel) -> tuple:
+def sharded_serving_path(cfg, fa_kernel, ssd_kernel, shape=None) -> tuple:
     """``ServeEngine.generate`` on ``cfg`` at full width and depth, its
-    params laid out for its SHARD_MESHES mesh of cuda:0 (the engine under
-    the mesh's ``mesh_context``), the serving cell's requests: the float32
+    params laid out for a ``shape`` mesh of cuda:0 (default: its
+    SHARD_MESHES mesh; the engine under the mesh's ``mesh_context`` of
+    ``cfg``'s policy), the serving cell's requests: the float32
     gate, exact launches (per data group and layer one, or one per model
     shard where attention is head-local), finite logits, prefill ms a wave
     and decode ms a step (CUDA events around each call of the engine's
@@ -3805,13 +3901,14 @@ def sharded_serving_path(cfg, fa_kernel, ssd_kernel) -> tuple:
     a prefill wave and a decode step; peak memory.  Returns the config a
     launch runs at, the batch per launch and the launches."""
     from repro_torch.config import TrainConfig
-    from repro_torch.distributed import mesh_context, spmd
+    from repro_torch.distributed import spmd
     from repro_torch.models import transformer
     from repro_torch.serving import Request, ServeEngine
     from repro_torch.train.trainer import make_shardings
 
-    shape = SHARD_MESHES[cfg.name]
-    d, m = shape
+    shape = shape or SHARD_MESHES[cfg.name]
+    m = shape[1]
+    d = data_groups(cfg, shape)
     serving_check(cfg, shape)
     torch.cuda.empty_cache()
     params = transformer.init(
@@ -3839,11 +3936,12 @@ def sharded_serving_path(cfg, fa_kernel, ssd_kernel) -> tuple:
         return call
 
     waves = -(-LM_REQUESTS // LM_BATCH)
-    head_local = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    head_local = (cfg.parallel_policy != "dp_only" and cfg.num_heads % m == 0
+                  and cfg.num_kv_heads % m == 0)
     want = lm_kernel_launches(cfg, waves * d * cfg.num_layers)
     if want["flash_attention"] and head_local:
         want["flash_attention"] *= m
-    with mesh_context(mesh):
+    with policy_context(cfg, mesh):
         p_sh, _ = make_shardings(cfg, TrainConfig(), mesh)
         sp = spmd.device_put(params, p_sh)
         del params
@@ -3874,7 +3972,8 @@ def sharded_serving_path(cfg, fa_kernel, ssd_kernel) -> tuple:
              for r, t in zip(done, single["tokens"])]
     first = sum(int(r.out[0] == t[0]) for r, t in zip(done, single["tokens"]))
     log(f"{cfg.name} at full width and depth, bf16, a (data, model) mesh of "
-        f"{d} x {m} cuda:0; attention "
+        f"{shape[0]} x {m} cuda:0 ({d} data groups, policy "
+        f"{cfg.parallel_policy}); attention "
         f"{'head-local, ' + str(cfg.num_heads // m) + '/' + str(cfg.num_kv_heads // m) + ' heads a shard' if head_local else 'at full heads a data group'}; "
         f"on {card()}")
     log(f"  generate: {gen_ms:.1f} ms for {LM_REQUESTS} requests, {new} new "
@@ -3916,39 +4015,47 @@ def sharded_serving_path(cfg, fa_kernel, ssd_kernel) -> tuple:
 
 def dryrun_path() -> None:
     """The dry-run on meshes of ``meta`` devices: DRYRUN_CELLS at once, one
-    ``python -m repro_torch.launch.dryrun`` process each (no card), each
-    record ``ok``, the phase within DRYRUN_LIMIT_S."""
+    ``python -m repro_torch.launch.dryrun`` process each (no card; a cell's
+    ``--set`` overrides also name its ``--tag``), each record ``ok``, the
+    phase within DRYRUN_LIMIT_S."""
     out = ROOT / "build" / "dryrun"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     t0 = time.perf_counter()
+    def tag(sets):
+        return "-".join(kv.replace("=", "_") for kv in sets)
+
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", str(out)], env=env, cwd=ROOT,
+         "--shape", shape, "--out", str(out), "--tag", tag(sets)]
+        + [a for kv in sets for a in ("--set", kv)], env=env, cwd=ROOT,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for arch, shape in DRYRUN_CELLS]
+        for arch, shape, sets in DRYRUN_CELLS]
     wall, fails = {}, []
     try:
-        for (arch, shape), p in zip(DRYRUN_CELLS, procs):
+        for cell, p in zip(DRYRUN_CELLS, procs):
             left = DRYRUN_LIMIT_S - (time.perf_counter() - t0)
             text, _ = p.communicate(timeout=max(left, 1.0))
-            wall[arch, shape] = time.perf_counter() - t0
+            wall[cell] = time.perf_counter() - t0
             if p.returncode != 0:
-                fails.append((arch, shape, text[-2000:]))
+                fails.append((cell, text[-2000:]))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     took = time.perf_counter() - t0
-    for arch, shape in DRYRUN_CELLS:
-        rec = json.loads((out / f"pod256--{arch}--{shape}.json").read_text())
+    for arch, shape, sets in DRYRUN_CELLS:
+        suffix = f"-{tag(sets)}" if sets else ""
+        rec = json.loads((out / f"pod256--{arch}--{shape}{suffix}.json")
+                         .read_text())
         if rec["status"] != "ok":
-            fails.append((arch, shape, rec.get("error")))
+            fails.append((arch, shape, sets, rec.get("error")))
             continue
         c = rec["collectives"]
-        log(f"  {arch} {shape}: {rec['status']}, {rec['lower_s']} s in the "
-            f"run, {wall[arch, shape]:.1f} s to the process's end; flops "
+        log(f"  {arch} {shape} {' '.join(sets)}: {rec['status']}, "
+            f"{rec['lower_s']} s in the run, "
+            f"{wall[arch, shape, sets]:.1f} s to the process's end; flops "
             f"{rec['cost_analysis']['flops']:.4g} (one device), collectives "
             f"{c['total_bytes'] / 1e6:.2f} MB out, "
             f"{c['total_wire_bytes'] / 1e6:.2f} MB on the wire "
@@ -4283,6 +4390,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"sharded training phase ({LM_ARCH}): "
         f"{time.perf_counter() - t0:.1f} s")
+    phase(f"sharded training path, seq_parallel: {LM_ARCH}, {SHARD_LAYERS} "
+          f"layers on a {' x '.join(map(str, SHARD_MESHES[LM_ARCH]))} "
+          f"(data, model) mesh of cuda:0")
+    t0 = time.perf_counter()
+    hymba_sp = sharded_training_path(
+        dataclasses.replace(cfg, seq_parallel=True), fa_kernel, ssd_kernel)
+    seq_parallel_report(cfg)
+    torch.cuda.empty_cache()
+    log(f"sharded training phase, seq_parallel ({LM_ARCH}): "
+        f"{time.perf_counter() - t0:.1f} s")
     phase(f"sharded serving path: {LM_ARCH}, full width and depth on a "
           f"{' x '.join(map(str, SHARD_MESHES[LM_ARCH]))} (data, model) "
           f"mesh of cuda:0")
@@ -4297,6 +4414,7 @@ def main() -> int:
                 "pipeline": (cfg, PIPE_BATCH, pipe_launches),
                 "compressed data-parallel": (cfg, DP_BATCH, dp_launches),
                 "sharded training": hymba_sharded,
+                "sharded training, seq_parallel": hymba_sp,
                 "sharded serving": hymba_serve_sharded}
 
     t0 = time.perf_counter()
@@ -4348,6 +4466,33 @@ def main() -> int:
     log(f"{MOE_ARCH} phases: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    phase(f"dp-only path: {DP_ONLY_ARCH} on a "
+          f"{' x '.join(map(str, DP_ONLY_MESH))} (data, model) mesh of "
+          f"cuda:0, batch over both")
+    scfg = get_config(DP_ONLY_ARCH)
+    params = transformer.init(
+        scfg, torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    log(f"{scfg.name}: {scfg.num_layers} layers, d_model {scfg.d_model}, "
+        f"{scfg.num_heads}/{scfg.num_kv_heads} heads, vocab "
+        f"{scfg.padded_vocab} (tied; split {DP_ONLY_MESH[1]} ways under "
+        f"dp-only), {n_params / 1e6:.1f} M parameters "
+        f"({scfg.param_count() / 1e6:.1f} M by the config's count), random "
+        f"weights (seed {SEED}); first the single-device engine")
+    lm_paths["smollm serving"] = (scfg, LM_BATCH, serving_path(
+        scfg, params, fa_kernel, ssd_kernel))
+    del params
+    torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(scfg, parallel_policy="dp_only")
+    lm_paths["smollm dp-only training"] = sharded_training_path(
+        dcfg, fa_kernel, ssd_kernel, DP_ONLY_MESH, scfg.num_layers)
+    torch.cuda.empty_cache()
+    lm_paths["smollm dp-only serving"] = sharded_serving_path(
+        dcfg, fa_kernel, ssd_kernel, DP_ONLY_MESH)
+    torch.cuda.empty_cache()
+    log(f"dp-only phases ({DP_ONLY_ARCH}): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     for name in ZOO:
         phase(f"the zoo: {name}, full width, {ZOO_LAYERS} layers")
         zcfg, zoo_launches = zoo_path(name, fa_kernel, ssd_kernel)
@@ -4355,7 +4500,8 @@ def main() -> int:
             lm_paths[f"{name} serving"] = (zcfg, ZOO_BATCH, zoo_launches)
     log(f"zoo phases: {time.perf_counter() - t0:.1f} s")
 
-    phase("dry-run: four cells of the single-pod mesh on meta devices")
+    phase(f"dry-run: {len(DRYRUN_CELLS)} cells of the single-pod mesh on "
+          f"meta devices")
     dryrun_path()
 
     phase("LM kernel timing at the serving and training paths' shapes")

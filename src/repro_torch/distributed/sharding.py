@@ -168,6 +168,20 @@ def mesh_context(mesh: Mesh, *, batch_axes: Optional[tuple] = None,
          _CTX.tp_exclude) = prev
 
 
+def policy_kw(policy: str) -> dict:
+    """:func:`mesh_context`'s keywords for a ``ModelConfig.parallel_policy``
+    (the reference's ``launch/dryrun.py`` passes the same): ``"tp"`` the
+    defaults; ``"dp_only"`` the batch over every axis (``pod``, ``data``,
+    ``model``) and only ``vocab``/``embed_model`` on the model axis."""
+    if policy == "tp":
+        return {}
+    if policy == "dp_only":
+        return dict(batch_axes=("pod", "data", "model"),
+                    tp_exclude=frozenset(MODEL_PRIORITY)
+                    - {"vocab", "embed_model"})
+    raise ValueError(f"unknown parallel_policy {policy!r}")
+
+
 def active_mesh() -> Optional[Mesh]:
     return _CTX.mesh
 

@@ -15,8 +15,9 @@ device).  :func:`device_put` lays a tree out, :func:`gather` assembles a
 global tensor.
 
 **Collectives** (:func:`all_gather`, :func:`all_reduce`,
-:func:`replicate`, :func:`split`, a :class:`PartialSum` reduced by
-:func:`device_put`, :func:`microbatches`, :func:`cast_into`) are built from
+:func:`reduce_scatter`, :func:`replicate`, :func:`split`, a
+:class:`PartialSum` reduced by :func:`device_put`, :func:`microbatches`,
+:func:`cast_into`, :func:`seq_gather`) are built from
 ``Tensor.to``, ``cat``, slices and sums, so autograd differentiates them.
 Each goes through :func:`record`, which appends ``(kind, bytes, group
 size)`` to the :class:`CollectiveLog` being recorded, with the kinds of
@@ -74,12 +75,41 @@ again when the layer is recomputed.
 * *Gradients.*  A shard's gradient lands on its device.  They are reduced
   over the data groups into the optimizer state's layout (``zero1`` of
   ``opt_state_axes``: a ``reduce-scatter``, an ``all-reduce`` where no
-  dimension divides), once per microbatch; AdamW runs per optimizer-state
-  shard on its device, after one ``all-reduce`` of the squared gradient
-  norm; the updated master slices, cast to the compute dtype, are
+  dimension divides), once per microbatch (a ZeRO-2 layout: the
+  reference constrains them to the zero1 layout of the ambient data axes,
+  the same layout wherever those are the optimizer state's); AdamW runs
+  per optimizer-state shard on its device, after one ``all-reduce`` of
+  the squared gradient norm; the updated master slices, cast to the
+  compute dtype, are
   all-gathered back into the parameter layout.  With several microbatches
   the batch is first re-cut so that microbatch i holds the global rows
   the single-device step gives it (an ``all-to-all`` per batch leaf).
+* *dp-only* (``parallel_policy="dp_only"``: the data axes hold the model
+  axis too, :class:`Layout`'s ``overlap``).  Each data group is one
+  position, its own home, and reads every replicated weight from its own
+  replica.  A weight still split over the model axis (the vocab-split
+  table and LM head) lies on the group's *line*, the positions that
+  differ from it only on the model axis: every use gathers it
+  (:func:`local`, once a step and group; the tied head is the gathered
+  table's transpose), and each group differentiates its own leaves of
+  the line's shards (``ShardedTensor.reads``), so that its gradient of
+  the whole table is one term of the reduction over every group.  The
+  caches follow the batch (``launch/steps.py::cache_layout``).
+* *Sequence parallelism* (``cfg.seq_parallel``, training only, as in the
+  reference): where ``choose_pspec`` puts ``seq_sp`` on the model axis,
+  each data group's residual stream enters the layers split by sequence
+  over its model shards (a :class:`SeqSplit`; :func:`seq_split`, whose
+  backward all-gathers) and leaves them gathered.  Norms and residual
+  adds run per block (:func:`rowwise`; a norm's weight gradient is
+  all-reduced over the shards); a block's input is all-gathered over the
+  sequence (:func:`seq_gather`) and its row-parallel outputs
+  (:func:`shard_map`'s ``"sum"`` under :func:`seq_scope`: attention's
+  ``wo``, the SSM's ``w_out``, the MLP's ``wd``) are reduce-scattered
+  over the sequence instead of all-reduced.  Backward swaps them: the
+  outputs' gradients are all-gathered and the inputs' reduce-scattered
+  (in place of the all-reduce :func:`replicate` logs for a region's
+  input).  The MoE layer routes the gathered tokens and its combined
+  output is split back (backward: an all-gather).
 * *No mesh.*  On plain tensors every primitive calls the code it wraps,
   unchanged, so the single-device path runs the same operations as
   before.
@@ -100,13 +130,18 @@ executor decides each layout where the reference pinned it:
   expert; the outputs are all-gathered.
 * ``transformer.py:106-195, 374`` (the MLP's hidden on ``ff``, the
   residual stream and logits): the MLP's hidden stays per shard; the
-  residual stream is replicated over the model axis on each group's home;
-  the logits are all-gathered over ``vocab``.  ``seq_sp`` is not executed.
+  residual stream is replicated over the model axis on each group's home,
+  or split by sequence between the layers under ``seq_parallel``
+  (``transformer.py:136-139``); the logits are all-gathered over
+  ``vocab`` (under dp-only, the batch holds the model axis: the table is
+  gathered instead).
 
 **Prefill and decode** (``transformer.prefill``/``decode_step`` on
 sharded params, as the reference's ``jax.jit`` partitions them over
 sharded inputs) run the data groups in lockstep as the train step does,
-and lay the caches out by ``launch/steps.py::cache_pspecs``: the layers
+and lay the caches out by ``launch/steps.py::cache_layout``
+(``cache_pspecs``, but under dp-only the batch's spec and nothing on the
+model axis): the layers
 axis whole, the batch over the data axes (with its fallback: long_500k's
 one row is held by every group and run by the first), kv heads, ``hd``,
 SSM heads or conv channels over the model axis.  Each cache piece is
@@ -141,8 +176,7 @@ There, re-layouts make each slice at its shape, and (:func:`per_group`,
 :func:`shard_map`) the first data group's and model shard's results
 stand for the others', whose shapes are the same.
 
-Not executed here: meshes whose data and model axes overlap (the dp-only
-policy), and other mesh axes.
+Refused: mesh axes other than the data axes and the model axis.
 """
 from __future__ import annotations
 
@@ -170,13 +204,18 @@ from .sharding import Mesh, NamedSharding, device_scope
 class ShardedTensor:
     """A global tensor of ``shape`` laid out by ``sharding``: ``shards`` is
     an object array of ``mesh.devices``' shape holding each position's
-    local tensor on that position's device."""
+    local tensor on that position's device.  ``reads`` (set by
+    :func:`grad_leaves` where the data groups overlap the model axis):
+    ``{group index: [tensor per model index]}``, the shards each group
+    reads in place of ``shards``' (its own leaves, for its own
+    gradient)."""
 
     def __init__(self, shards: np.ndarray, sharding: NamedSharding,
-                 shape: tuple):
+                 shape: tuple, reads: Optional[dict] = None):
         self.shards = shards
         self.sharding = sharding
         self.shape = torch.Size(shape)
+        self.reads = reads
 
     @property
     def mesh(self) -> Mesh:
@@ -377,7 +416,7 @@ def write_rows(x: ShardedTensor, layer: int, rows: slice, value=None,
     dimension: ``value`` at full width (each shard takes its slice of the
     dimension ``x`` splits over the model axis), or ``parts``, one tensor
     per model index, already sliced."""
-    k = Layout(x.mesh).model_dim(x)
+    k = Layout(x.mesh).cache_dim(x)
     for p, j in holders(x, rows):
         if parts is not None:
             part = parts[j]
@@ -435,6 +474,7 @@ class _State(threading.local):
         self.log: Optional[CollectiveLog] = None
         self.logging = True       # this program's device is the logged one
         self.memo: Optional[dict] = None
+        self.seq: Optional[list] = None   # devices of a seq_scope
 
 
 _STATE = _State()
@@ -509,11 +549,12 @@ def _nbytes(shape, dtype) -> int:
 
 class _Mark(torch.autograd.Function):
     """Identity that records a collective when its forward runs
-    (``fwd``) and when its backward runs (``bwd``)."""
+    (``fwd``) and when its backward runs (``bwd``, of ``scale`` times the
+    gradient's bytes)."""
 
     @staticmethod
-    def forward(ctx, x, fwd, bwd, group):
-        ctx.bwd, ctx.group, ctx.log = bwd, group, _target()
+    def forward(ctx, x, fwd, bwd, group, scale=1):
+        ctx.bwd, ctx.group, ctx.log, ctx.scale = bwd, group, _target(), scale
         if fwd is not None:
             record(fwd, _nbytes(x.shape, x.dtype), group)
         return x.view_as(x)
@@ -521,22 +562,29 @@ class _Mark(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.bwd is not None and ctx.log is not None:
-            record(ctx.bwd, _nbytes(g.shape, g.dtype), ctx.group, ctx.log)
-        return g, None, None, None
+            record(ctx.bwd, _nbytes(g.shape, g.dtype) * ctx.scale,
+                   ctx.group, ctx.log)
+        return g, None, None, None, None
 
 
-def _mark(x, fwd, bwd, group):
+def _mark(x, fwd, bwd, group, scale=1):
     if not x.requires_grad:
         bwd = None
         if fwd is None:
             return x
-    return _Mark.apply(x, fwd, bwd, group)
+    return _Mark.apply(x, fwd, bwd, group, scale)
 
 
 def replicate(x, devices) -> list:
     """``x`` (replicated: every device of the group holds it) handed to
-    each of ``devices``; backward: the shards' gradients all-reduced."""
-    x = _mark(x, None, "all-reduce", len(devices))
+    each of ``devices``; backward: the shards' gradients all-reduced (for
+    an input gathered by :func:`seq_gather`, its backward's
+    reduce-scatter takes the place of the all-reduce)."""
+    flag = getattr(x, "_seq_partial", None)
+    if flag is not None:
+        flag[0] = True
+    else:
+        x = _mark(x, None, "all-reduce", len(devices))
     return [x.to(d) for d in devices]
 
 
@@ -560,6 +608,117 @@ def all_reduce(parts: Sequence, home) -> torch.Tensor:
     for p in parts[1:]:
         out = out + p.to(home)
     return _mark(out, "all-reduce", None, len(parts))
+
+
+def reduce_scatter(parts: Sequence, dim: int, devices) -> list:
+    """The parts' sum cut along ``dim``: block ``j`` summed (in order) on
+    ``devices[j]``; backward: the blocks' gradients all-gathered."""
+    m = len(devices)
+    n = parts[0].shape[dim] // m
+    out = []
+    for j, d in enumerate(devices):
+        s = parts[0].narrow(dim, j * n, n).to(d)
+        for p in parts[1:]:
+            s = s + p.narrow(dim, j * n, n).to(d)
+        out.append(s)
+    out[0] = _mark(out[0], "reduce-scatter", "all-gather", m, m)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the residual stream split by sequence
+# ---------------------------------------------------------------------------
+
+
+class SeqSplit:
+    """A data group's activations (B, L, ...) split by sequence over its
+    model shards: ``parts[j]`` on ``devices[j]`` holds positions
+    ``[j L/m, (j+1) L/m)``."""
+
+    def __init__(self, parts: list, devices: list):
+        self.parts, self.devices = parts, devices
+
+
+class _Partial(torch.autograd.Function):
+    """Identity on an input gathered by :func:`seq_gather`; its backward
+    records the reduce-scatter of the gradient over the sequence when a
+    model-sharded region read the input (``flag[0]``, set by
+    :func:`replicate`): the shards' gradients are then partial sums."""
+
+    @staticmethod
+    def forward(ctx, x, flag, group):
+        ctx.flag, ctx.group, ctx.log = flag, group, _target()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.flag[0] and ctx.log is not None:
+            record("reduce-scatter", _nbytes(g.shape, g.dtype) // ctx.group,
+                   ctx.group, ctx.log)
+        return g, None, None
+
+
+def seq_split(x, devices) -> SeqSplit:
+    """``x`` (whole on the home, as every model shard holds it) cut by
+    sequence, each shard keeping its block: no collective; backward: the
+    blocks' gradients all-gathered."""
+    return SeqSplit(split(x, 1, devices), devices)
+
+
+def seq_gather(x):
+    """A :class:`SeqSplit` whole on its first device, the group's home (an
+    all-gather; backward: a reduce-scatter where a model-sharded region
+    reads it, else each shard takes its block of the gradient); any other
+    value as it is."""
+    if not isinstance(x, SeqSplit):
+        return x
+    out = all_gather(x.parts, 1, x.devices[0])
+    if out.requires_grad:
+        flag = [False]
+        out = _Partial.apply(out, flag, len(x.parts))
+        out._seq_partial = flag
+    return out
+
+
+@contextlib.contextmanager
+def seq_scope(x):
+    """Where ``x`` (a block's input) is a :class:`SeqSplit`, the block's
+    row-parallel outputs (:func:`shard_map` with ``out="sum"``) are
+    reduce-scattered over the sequence into a SeqSplit instead of
+    all-reduced."""
+    if not isinstance(x, SeqSplit):
+        yield
+        return
+    prev = _STATE.seq
+    _STATE.seq = x.devices
+    try:
+        yield
+    finally:
+        _STATE.seq = prev
+
+
+def rowwise(fn: Callable, args: tuple, weights: tuple = ()):
+    """``fn(*args, *weights)``, position by position: where an argument is
+    a :class:`SeqSplit`, per block on its device, with every SeqSplit
+    argument's block, every tensor argument's block (:func:`split`) and
+    the weights replicated (:func:`replicate`: their gradients
+    all-reduced); a SeqSplit back.  Otherwise ``fn`` runs once on what it
+    is given."""
+    seq = next((a for a in args if isinstance(a, SeqSplit)), None)
+    if seq is None:
+        return fn(*args, *weights)
+    devices = seq.devices
+    per_arg = [a.parts if isinstance(a, SeqSplit) else split(a, 1, devices)
+               for a in args]
+    per_w = [replicate(local(w), devices) for w in weights]
+    outs = []
+    for j, dev in enumerate(devices):
+        if j and dev.type == "meta":
+            outs.append(outs[0])
+            continue
+        with on_shard(j, dev):
+            outs.append(fn(*(a[j] for a in per_arg), *(w[j] for w in per_w)))
+    return SeqSplit(outs, devices)
 
 
 # ---------------------------------------------------------------------------
@@ -645,6 +804,8 @@ class _StandIn(torch.autograd.Function):
 
 
 def _stand_in(x):
+    if isinstance(x, SeqSplit):
+        return SeqSplit([_stand_in(p) for p in x.parts], x.devices)
     if isinstance(x, torch.Tensor) and x.requires_grad:
         return _StandIn.apply(x)
     return x
@@ -653,7 +814,11 @@ def _stand_in(x):
 class Layout:
     """The data axes and the model axis of ``mesh``, from the ambient
     :func:`~.sharding.mesh_context` when it holds ``mesh`` (else the
-    defaults: ``pod``/``data`` and ``model``)."""
+    defaults: ``pod``/``data`` and ``model``).  The model axis may also be
+    a data axis (the dp-only policy, ``overlap``): each data group is then
+    one position, and a weight split over the model axis lies on the
+    positions of its *line* (those that differ from the group's only on
+    the model axis), in other groups."""
 
     def __init__(self, mesh: Mesh):
         ctx = sharding._CTX
@@ -663,16 +828,13 @@ class Layout:
         else:
             self.data_axes = tuple(a for a in ("pod", "data") if a in names)
             self.model_axis = "model" if "model" in names else None
-        if self.model_axis in self.data_axes:
-            raise ValueError(
-                f"sharded execution needs disjoint data and model axes, got "
-                f"data {self.data_axes} and model {self.model_axis!r}")
         other = set(names) - set(self.data_axes) - {self.model_axis}
         if other:
             raise ValueError(f"sharded execution runs on data and model axes "
                              f"only; the mesh also has {sorted(other)}")
         self.mesh = mesh
         self.m = mesh.shape[self.model_axis] if self.model_axis else 1
+        self.overlap = self.model_axis in self.data_axes
 
     @classmethod
     def of(cls, t) -> "Layout":
@@ -685,23 +847,39 @@ class Layout:
         for k, idx in enumerate(itertools.product(
                 *(range(self.mesh.shape[a]) for a in self.data_axes))):
             at = dict(zip(self.data_axes, idx))
-            pos = [tuple(j if a == self.model_axis else at[a] for a in names)
-                   for j in range(self.m)]
+            pos = ([tuple(at[a] for a in names)] if self.overlap else
+                   [tuple(j if a == self.model_axis else at[a] for a in names)
+                    for j in range(self.m)])
             out.append(Group(k, pos, [self.mesh.devices[p] for p in pos]))
         return out
 
+    def line(self, position: tuple) -> list:
+        """The positions along the model axis through ``position``."""
+        k = self.mesh.axis_names.index(self.model_axis)
+        return [position[:k] + (j,) + position[k + 1:] for j in range(self.m)]
+
     def model_dim(self, x: ShardedTensor) -> Optional[int]:
-        """The dimension ``x`` splits over the model axis (``None``: it is
-        replicated over it, or the axis has one device)."""
+        """The dimension the weight ``x`` splits over the model axis
+        (``None``: it is replicated over it, or the axis has one device).
+        Where the groups overlap the model axis, a dimension split over it
+        with other data axes is a data split, not a model one."""
         if self.m == 1:
             return None
         for i, e in enumerate(x.sharding.spec):
             if self.model_axis in sharding._entry_axes(e):
+                if self.overlap and e != self.model_axis:
+                    continue
                 if e != self.model_axis:
                     raise ValueError(f"{x}: the model axis shares a "
                                      f"dimension with other axes")
                 return i
         return None
+
+    def cache_dim(self, x: ShardedTensor) -> Optional[int]:
+        """The dimension a cache ``x`` splits over the model axis; none
+        where the groups overlap it (the caches then follow the batch,
+        ``launch/steps.py::cache_layout``)."""
+        return None if self.overlap else self.model_dim(x)
 
     def runners(self, batch) -> List[Group]:
         """The groups that run the program: one per distinct slice of the
@@ -738,10 +916,16 @@ class Layout:
 class Shards:
     """A data group's model shards of one weight: ``parts[j]`` on
     ``devices[j]`` is block ``j`` of dimension ``dim``.  ``key`` names it
-    for the gather memo of :func:`local`."""
+    for the gather memo of :func:`local`.  ``home``: the group's home
+    (``devices[0]`` unless the groups overlap the model axis: then the
+    shards lie in other groups, and every use gathers the weight, ``gather``;
+    ``base``: the parent and the step that made a child)."""
 
-    def __init__(self, parts: list, devices: list, dim: int, key: tuple):
+    def __init__(self, parts: list, devices: list, dim: int, key: tuple,
+                 home=None, gather: bool = False, base=None):
         self.parts, self.devices, self.dim, self.key = parts, devices, dim, key
+        self.home = devices[0] if home is None else home
+        self.gather, self.base = gather, base
 
     @property
     def shape(self) -> torch.Size:
@@ -754,7 +938,8 @@ class Shards:
         return self.parts[0].dim()
 
     def _child(self, parts, dim, step) -> "Shards":
-        return Shards(parts, self.devices, dim, self.key + (step,))
+        return Shards(parts, self.devices, dim, self.key + (step,),
+                      self.home, self.gather, (self, step))
 
     def __getitem__(self, i: int) -> "Shards":
         if not isinstance(i, int) or self.dim == 0:
@@ -774,16 +959,23 @@ class Shards:
         return self._child([p.T for p in self.parts], 1 - self.dim, "T")
 
 
-def views(t, group: Group, layout: Layout):
+def views(t, group: Group, layout: Layout, data: bool = False):
     """``t``'s leaves as ``group`` reads them: a :class:`Shards` for a
     leaf split over the model axis, else the tensor at the group's home
-    position."""
+    position (always, for ``data``: a batch, split over data axes
+    only)."""
     def leaf(x):
         if not isinstance(x, ShardedTensor):
             return x
-        k = layout.model_dim(x)
+        k = None if data else layout.model_dim(x)
         if k is None:
             return x.shards[group.positions[0]]
+        if layout.overlap:
+            line = layout.line(group.positions[0])
+            parts = (x.reads[group.index] if x.reads is not None else
+                     [x.shards[p] for p in line])
+            return Shards(parts, [layout.mesh.devices[p] for p in line], k,
+                          (id(x), group.index), group.home, gather=True)
         return Shards([x.shards[p] for p in group.positions], group.devices,
                       k, (id(x), group.index))
 
@@ -791,16 +983,21 @@ def views(t, group: Group, layout: Layout):
 
 
 def local(w):
-    """A weight used outside a matmul, whole on the group's home: a
-    :class:`Shards` is all-gathered at its first use in the
-    :func:`step_scope` (the gather fallback); a tensor is returned as it
-    is."""
+    """A weight used outside a matmul (or, where the groups overlap the
+    model axis, anywhere), whole on the group's home: a :class:`Shards` is
+    all-gathered at its first use in the :func:`step_scope` (the gather
+    fallback; a child of a gathering weight is the same step on its
+    parent's gather); a tensor is returned as it is."""
     if not isinstance(w, Shards):
         return w
+    if w.gather and w.base is not None:
+        parent, step = w.base
+        full = local(parent)
+        return full.T if step == "T" else full[step]
     memo = _STATE.memo
     if memo is not None and w.key in memo:
         return memo[w.key]
-    out = all_gather(w.parts, w.dim, w.devices[0])
+    out = all_gather(w.parts, w.dim, w.home)
     if memo is not None:
         memo[w.key] = out
     return out
@@ -815,6 +1012,8 @@ def shard_map(fn: Callable, args: tuple, weights: tuple, *,
     the results are all-gathered along ``out = ("gather", dim)`` or
     summed (``out = "sum"``).  Without a sharded weight, ``fn`` runs once
     on what it is given."""
+    weights = tuple(local(w) if isinstance(w, Shards) and w.gather else w
+                    for w in weights)
     sharded = [w for w in weights if isinstance(w, Shards)]
     if not sharded:
         return fn(*args, *weights)
@@ -840,6 +1039,8 @@ def shard_map(fn: Callable, args: tuple, weights: tuple, *,
             continue
         with on_shard(j, dev):
             outs.append(fn(*(a[j] for a in per_arg), *(w[j] for w in per_w)))
+    if out == "sum" and _STATE.seq is not None:
+        return SeqSplit(reduce_scatter(outs, 1, devices), devices)
     if out == "sum":
         return all_reduce(outs, devices[0])
     return all_gather(outs, out[1], devices[0])
@@ -850,9 +1051,9 @@ def einsum(eq: str, x, w, fn: Callable) -> torch.Tensor:
     the weight ``w``, computed by ``fn(x, w)``: on a :class:`Shards` per
     shard, the output all-gathered where the sharded dimension is free,
     the input split and the partial products summed where it is
-    contracted."""
-    if not isinstance(w, Shards):
-        return fn(x, w)
+    contracted (a gathering weight: whole on the home)."""
+    if not isinstance(w, Shards) or w.gather:
+        return fn(x, local(w))
     xs, rest = eq.split(",")
     ws, os_ = rest.split("->")
     c = ws[w.dim]
@@ -864,9 +1065,10 @@ def einsum(eq: str, x, w, fn: Callable) -> torch.Tensor:
 def embedding(tokens, table) -> torch.Tensor:
     """``F.embedding(tokens, table)``; a table split over ``vocab`` looks
     up the tokens in each shard's range (others read zero) and sums the
-    shards, one split over the model dimension is all-gathered."""
-    if not isinstance(table, Shards):
-        return F.embedding(tokens, table)
+    shards, one split over the model dimension is all-gathered (a
+    gathering table is looked up whole on the home)."""
+    if not isinstance(table, Shards) or table.gather:
+        return F.embedding(tokens, local(table))
     devices = table.devices
     if table.dim == 1:
         return all_gather([F.embedding(tokens.to(d), p) for p, d in
@@ -888,7 +1090,7 @@ def head_local(params: dict) -> bool:
     ``wk``/``wv`` on ``kv_heads`` (``wo`` then on ``heads``): attention
     runs per shard on its heads."""
     ws = [params.get(k) for k in ("wq", "wk", "wv", "wo")]
-    return (all(isinstance(w, Shards) for w in ws)
+    return (all(isinstance(w, Shards) and not w.gather for w in ws)
             and [w.dim for w in ws] == [1, 1, 1, 0])
 
 
@@ -900,21 +1102,31 @@ def head_local(params: dict) -> bool:
 def grad_leaves(params, groups: List[Group], layout: Layout) -> tuple:
     """``params`` with each shard that ``groups`` read replaced by a fresh
     leaf that requires grad, and per parameter leaf, per group, the
-    ``[(position, leaf)]`` to differentiate."""
+    ``[(position, leaf)]`` to differentiate.  Where the groups overlap
+    the model axis, each group reads a model-sharded weight from its line
+    through fresh leaves of its own (``ShardedTensor.reads``), so that its
+    gradient of the whole weight is its own term."""
     per_leaf = []
 
     def leaf(x: ShardedTensor):
         shards = x.shards.copy()
         k = layout.model_dim(x)
-        mine = []
+        mine, reads = [], None
         for g in groups:
             got = []
-            for pos in (g.positions if k is not None else g.positions[:1]):
-                shards[pos] = x.shards[pos].detach().requires_grad_()
-                got.append((pos, shards[pos]))
+            if k is not None and layout.overlap:
+                got = [(p, x.shards[p].detach().requires_grad_())
+                       for p in layout.line(g.positions[0])]
+                reads = reads or {}
+                reads[g.index] = [t for _, t in got]
+            else:
+                for pos in (g.positions if k is not None
+                            else g.positions[:1]):
+                    shards[pos] = x.shards[pos].detach().requires_grad_()
+                    got.append((pos, shards[pos]))
             mine.append(got)
         per_leaf.append(mine)
-        return ShardedTensor(shards, x.sharding, x.shape)
+        return ShardedTensor(shards, x.sharding, x.shape, reads)
 
     return tree.tree_map(leaf, params), per_leaf
 

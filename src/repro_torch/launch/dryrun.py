@@ -21,7 +21,8 @@ costs seconds to a minute of host time.  Per cell:
   unless the policy is dp-only), ``prefill`` and ``decode`` the sharded
   ``transformer.prefill``/``decode_step``; the inputs are ``steps.py``'s
   ``meta`` specs laid out by ``make_shardings``, ``choose_pspec``
-  (``batch``) and ``cache_pspecs``, as the reference's ``in_shardings``;
+  (``batch``) and ``cache_layout`` (``cache_pspecs``; under dp-only the
+  batch's spec), as the reference's ``in_shardings``;
 * ``collectives``: the step's ``CollectiveLog`` (one device's schedule)
   through ``hlo_parse.log_analysis``, under the reference's keys
   ``bytes``, ``counts``, ``total_bytes``, plus ``wire_bytes`` and
@@ -47,9 +48,9 @@ loop bodies to count once).
 The reference retries a failed ``train`` cell at ``microbatches=1``
 because of an XLA SPMD verifier bug (hymba's odd vocabulary at 8
 microbatches); the port has no verifier and no such bug, so it keeps the
-8 microbatches and does not retry.  A cell whose layout the executor
-refuses (``--set parallel_policy=dp_only``: the batch on the model axis
-too) is recorded ``failed`` with that error.
+8 microbatches and does not retry.  ``--set parallel_policy=dp_only``
+runs the dp-only policy (the batch over every axis) and ``--set
+seq_parallel=true`` sequence parallelism, as in the reference.
 
 The records, file names, printed lines and exit code are the
 reference's: ``<out>/<mesh>--<arch>--<shape>[-<tag>].json``, one
@@ -277,7 +278,7 @@ def measure(cfg, shape, mesh, tcfg, *, ctx_kw=None, model_kw=None) -> dict:
     from repro_torch.distributed import NamedSharding, mesh_context, spmd
     from repro_torch.distributed.sharding import choose_pspec
     from repro_torch.launch.hlo_parse import log_analysis
-    from repro_torch.launch.steps import cache_pspecs, make_step
+    from repro_torch.launch.steps import cache_layout, make_step
     from repro_torch.train.trainer import make_shardings
 
     t0 = time.time()
@@ -304,7 +305,7 @@ def measure(cfg, shape, mesh, tcfg, *, ctx_kw=None, model_kw=None) -> dict:
             cache_sh = type(specs["caches"])(*(
                 None if cs is None else type(cs)(*(NamedSharding(mesh, p)
                                                    for p in cs))
-                for cs in cache_pspecs(cfg, mesh, shape.global_batch)))
+                for cs in cache_layout(cfg, mesh, shape.global_batch)))
             args = (params, spmd.device_put(specs["tokens"],
                                             b_shard(specs["tokens"])),
                     spmd.device_put(specs["caches"], cache_sh))
@@ -342,7 +343,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              microbatches: int | None = None) -> dict:
     from repro_torch.config import (
         SHAPE_SUITE, TrainConfig, get_config, shape_skip_reason)
-    from repro_torch.distributed.sharding import MODEL_PRIORITY
+    from repro_torch.distributed.sharding import policy_kw
     from repro_torch.launch.mesh import make_production_mesh
 
     cfg = get_config(arch)
@@ -381,13 +382,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     dp_only = cfg.parallel_policy == "dp_only"
     default_mb = 8 if (shape.kind == "train" and not dp_only) else 1
     tcfg = TrainConfig(zero1=True, microbatches=microbatches or default_mb)
-    ctx_kw = {}
-    if dp_only:
-        ctx_kw = dict(batch_axes=("pod", "data", "model"),
-                      tp_exclude=frozenset(MODEL_PRIORITY)
-                      - {"vocab", "embed_model"})
     try:
-        record.update(measure(cfg, shape, mesh, tcfg, ctx_kw=ctx_kw,
+        record.update(measure(cfg, shape, mesh, tcfg,
+                              ctx_kw=policy_kw(cfg.parallel_policy),
                               model_kw=model_kw))
         record["status"] = "ok"
     except Exception as e:  # record the failure; the suite reports it

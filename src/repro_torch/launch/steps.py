@@ -148,3 +148,28 @@ def cache_pspecs(cfg: ModelConfig, mesh, global_batch: int = 0):
             state = P(None, d, None, None, None)
         ssm = SSMCache(conv=conv, state=state)
     return LayerCaches(attn, ssm)
+
+
+def cache_layout(cfg: ModelConfig, mesh, global_batch: int = 0):
+    """PartitionSpecs of the stacked decode caches as the sharded executor
+    lays them out: :func:`cache_pspecs`, except where the ambient
+    ``mesh_context`` of ``mesh`` puts the batch on the model axis too
+    (the dp-only policy).  There each cache's batch dimension takes the
+    batch's own spec (``choose_pspec`` of ``"batch"``, with its
+    fallback) and no dimension is model-sharded, so that the rows of each
+    data group lie whole on its own position.  (The reference keeps
+    :func:`cache_pspecs`' layout under dp-only and lets GSPMD re-lay the
+    caches; wherever the model axis divides a cache dimension, one
+    device's bytes are the same.)"""
+    from repro_torch.distributed import sharding as shd
+
+    specs = cache_pspecs(cfg, mesh, global_batch)
+    ctx = shd._CTX
+    if ctx.mesh is not mesh or ctx.model_axis not in ctx.data_axes:
+        return specs
+    rows = (shd.choose_pspec((global_batch,), ("batch",), mesh)[0]
+            if global_batch else ctx.data_axes)
+    return type(specs)(*(None if c is None else type(c)(*(
+        shd.PartitionSpec(*(rows if i == 1 else None for i in range(len(sp))))
+        for sp in c)) for c in specs))
+

@@ -252,7 +252,7 @@ def attention_decode_sharded(params, x, cfg: ModelConfig, k_leaf, v_leaf,
     """One-token attention of one data group (``x``: (B_g, 1, D) on its
     home, ``params`` its views) against layer ``layer`` of the sharded
     stacked caches ``k_leaf``/``v_leaf`` (``spmd.ShardedTensor``\\ s laid
-    out by ``launch.steps.cache_pspecs``), ``rows`` its batch rows.
+    out by ``launch.steps.cache_layout``), ``rows`` its batch rows.
 
     * kv split over kv heads: each model shard scores its own heads against
       its cache shard (with head-local weights, from its own projections).
@@ -268,7 +268,7 @@ def attention_decode_sharded(params, x, cfg: ModelConfig, k_leaf, v_leaf,
     written at their slot into the shard of every position that holds
     these rows (the group's own and its replicas), in place."""
     B = x.shape[0]
-    kdim = spmd.Layout(k_leaf.mesh).model_dim(k_leaf)   # 2: kv heads, 4: hd
+    kdim = spmd.Layout(k_leaf.mesh).cache_dim(k_leaf)   # 2: kv heads, 4: hd
     holders = spmd.holders(k_leaf, rows)
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     slot = _slot(cfg, pos, k_leaf.shape[3])

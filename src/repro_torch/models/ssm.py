@@ -251,7 +251,7 @@ def ssm_decode_sharded(params, x, cfg: ModelConfig, conv_leaf, state_leaf,
     """One-token mamba2 step of one data group (``x``: (B_g, 1, D) on its
     home, ``params`` its views) against layer ``layer`` of the sharded
     stacked caches (``spmd.ShardedTensor``\\ s laid out by
-    ``launch.steps.cache_pspecs``), ``rows`` its batch rows.
+    ``launch.steps.cache_layout``), ``rows`` its batch rows.
 
     The projections run on the home (``w_in`` gathered).  The conv tail
     split over channels: each model shard convolves its channels and
@@ -272,7 +272,7 @@ def ssm_decode_sharded(params, x, cfg: ModelConfig, conv_leaf, state_leaf,
     def own(leaf, j):
         return leaf.shards[group.positions[j]][layer]
 
-    if layout.model_dim(conv_leaf) is None:
+    if layout.cache_dim(conv_leaf) is None:
         hist = torch.cat([own(conv_leaf, 0), xbc[:, None]], dim=1)
         xbc = F.silu(torch.einsum("bkc,kc->bc", hist, w) + bconv)
         spmd.write_rows(conv_leaf, layer, rows, hist[:, 1:])
@@ -302,7 +302,7 @@ def ssm_decode_sharded(params, x, cfg: ModelConfig, conv_leaf, state_leaf,
     dth = F.softplus(dt + spmd.local(params["dt_bias"])[None]).float()
     A = -torch.exp(spmd.local(params["A_log"]).float())
     D = spmd.local(params["D_skip"]).float()
-    sdim = layout.model_dim(state_leaf)                # 2: heads, 3: P
+    sdim = layout.cache_dim(state_leaf)                # 2: heads, 3: P
     if sdim is None:
         state, y = _state_step(own(state_leaf, 0), xh, Bg, Cg, dth, A, D, rep)
         spmd.write_rows(state_leaf, layer, rows, state)

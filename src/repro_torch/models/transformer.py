@@ -27,7 +27,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import spmd
-from repro_torch.distributed.sharding import NamedSharding, PartitionSpec
+from repro_torch.distributed.sharding import (
+    NamedSharding, PartitionSpec, choose_pspec,
+)
 
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -135,10 +137,24 @@ def _lm_logits(params, x, cfg: ModelConfig):
     return logits
 
 
+def _norm(x, w, cfg: ModelConfig):
+    """``rms_norm`` position by position: per sequence block where ``x``
+    is split by sequence (``spmd.SeqSplit``)."""
+    return spmd.rowwise(lambda x, w: rms_norm(x, w, cfg.norm_eps), (x,),
+                        (w,))
+
+
+def _add(x, y):
+    """The residual add, per sequence block where ``x`` is split."""
+    return spmd.rowwise(torch.add, (x, y))
+
+
 def _mix(p, a, s, cfg):
     """Hybrid mixer: the branch outputs normalised, then averaged."""
-    return 0.5 * (rms_norm(a, p["attn_out_norm"], cfg.norm_eps)
-                  + rms_norm(s, p["ssm_out_norm"], cfg.norm_eps))
+    eps = cfg.norm_eps
+    return spmd.rowwise(lambda a, s, wa, ws: 0.5 * (
+        rms_norm(a, wa, eps) + rms_norm(s, ws, eps)), (a, s),
+        (p["attn_out_norm"], p["ssm_out_norm"]))
 
 
 def _ffn(p, x, cfg):
@@ -146,13 +162,26 @@ def _ffn(p, x, cfg):
         x = x + moe_mod.moe_forward(p["moe"],
                                     rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     elif "mlp" in p:
-        x = x + _apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+        with spmd.seq_scope(x):
+            out = _apply_mlp(p["mlp"], spmd.seq_gather(_norm(
+                x, p["ln2"], cfg)), cfg)
+        x = _add(x, out)
     return x
 
 
 def _mixer_residual(p, x, cfg: ModelConfig, positions, use_kernel,
                     causal_skip=False):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    """``x`` plus the mixers of its norm.  Where ``x`` is split by
+    sequence (sequence parallelism), the norm and the add run per block,
+    the mixers' input is all-gathered and their row-parallel outputs are
+    reduce-scattered (``spmd.seq_scope``)."""
+    with spmd.seq_scope(x):
+        mix = _mixers(p, spmd.seq_gather(_norm(x, p["ln1"], cfg)), cfg,
+                      positions, use_kernel, causal_skip)
+    return _add(x, mix)
+
+
+def _mixers(p, h, cfg: ModelConfig, positions, use_kernel, causal_skip):
     if cfg.mixer == "attn":
         mix = attn_mod.attention_forward(p["attn"], h, cfg, positions,
                                          use_kernel=use_kernel,
@@ -165,7 +194,7 @@ def _mixer_residual(p, x, cfg: ModelConfig, positions, use_kernel,
                                        causal_skip=causal_skip)
         s = ssm_mod.ssm_forward(p["ssm"], h, cfg, use_kernel=use_kernel)
         mix = _mix(p, a, s, cfg)
-    return x + mix
+    return mix
 
 
 def _layer_forward(p, x, cfg: ModelConfig, positions, use_kernel,
@@ -190,11 +219,11 @@ def _ffn_groups(ps, ys, groups, cfg: ModelConfig) -> list:
     if "moe" not in ps[0]:
         return spmd.per_group(groups, lambda g, p, y: _ffn(p, y, cfg), ps,
                               ys)
-    hs = spmd.per_group(groups, lambda g, p, y: rms_norm(
-        y, p["ln2"], cfg.norm_eps), ps, ys)
+    hs = spmd.per_group(groups, lambda g, p, y: spmd.seq_gather(_norm(
+        y, p["ln2"], cfg)), ps, ys)
     outs = moe_mod.moe_forward_groups([p["moe"] for p in ps], hs, cfg,
                                       groups)
-    return [y + o for y, o in zip(ys, outs)]
+    return spmd.per_group(groups, lambda g, y, o: _add(y, o), ys, outs)
 
 
 def _unstack(tree: dict, n: int) -> list:
@@ -278,7 +307,11 @@ def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
 
     On ``ShardedTensor`` params and batch (``repro_torch.distributed.spmd``)
     the loss is that of the whole batch, computed by the data groups in
-    lockstep, on the mesh's first device.
+    lockstep, on the mesh's first device; with ``cfg.seq_parallel`` the
+    residual stream runs split by sequence over the model axis between
+    the layers (``_seq_parallel``).  On plain tensors ``seq_parallel``
+    changes nothing, as the reference's pin is the identity without a
+    mesh.
     """
     if spmd.is_sharded(params):
         return _sharded_train_loss(params, batch, cfg, use_kernel,
@@ -304,6 +337,19 @@ def train_loss(params, batch, cfg: ModelConfig, *, use_kernel=False,
     return loss
 
 
+def _seq_parallel(cfg: ModelConfig, layout, shape) -> bool:
+    """Whether the residual stream of a sharded train step, of global
+    ``shape`` (B, L, D), runs split by sequence between the layers, as the
+    reference pins it to ``("batch", "seq_sp", None)``: with
+    ``cfg.seq_parallel``, where ``choose_pspec`` puts ``seq_sp`` on the
+    model axis (of more than one device, dividing L, and not taken by the
+    batch, as it is under dp-only)."""
+    if not cfg.seq_parallel or layout.m == 1:
+        return False
+    spec = choose_pspec(shape, ("batch", "seq_sp", None), layout.mesh)
+    return len(spec) > 1 and spec[1] == layout.model_axis
+
+
 def _sharded_train_loss(params, batch, cfg: ModelConfig, use_kernel: bool,
                         moe_aux_weight: float, causal_skip: bool = False):
     """``train_loss`` on sharded params and batch (the design is in
@@ -314,9 +360,11 @@ def _sharded_train_loss(params, batch, cfg: ModelConfig, use_kernel: bool,
     whole batch's, as ``train_loss`` forms it."""
     layout = spmd.Layout.of(params)
     groups = layout.runners(batch)
+    lead = tree.leaves(batch)[0]
+    sp = _seq_parallel(cfg, layout, tuple(lead.shape[:2]) + (cfg.d_model,))
     with spmd.step_scope():
         ps = [spmd.views(params, g, layout) for g in groups]
-        bs = [spmd.views(batch, g, layout) for g in groups]
+        bs = [spmd.views(batch, g, layout, data=True) for g in groups]
         xs = spmd.per_group(groups, lambda g, p, b: _embed_in(p, b, cfg),
                             ps, bs)
         positions = [torch.arange(x.shape[1], dtype=torch.float32,
@@ -327,7 +375,13 @@ def _sharded_train_loss(params, batch, cfg: ModelConfig, use_kernel: bool,
                                  cfg=cfg, positions=positions,
                                  use_kernel=use_kernel,
                                  causal_skip=causal_skip)
-        hs = _run_stack(step, layers, xs, cfg)
+        hs = xs
+        if sp:      # the stream enters the layers split by sequence
+            hs = spmd.per_group(groups, lambda g, x: spmd.seq_split(
+                x, g.devices), xs)
+        hs = _run_stack(step, layers, hs, cfg)
+        if sp:
+            hs = spmd.per_group(groups, lambda g, h: spmd.seq_gather(h), hs)
 
         def terms(g, p, b, h, x):
             logits = _lm_logits(p, rms_norm(h, p["final_norm"],
@@ -399,7 +453,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, *,
     the data groups run in lockstep; the logits come back as a
     ``ShardedTensor`` split over the batch (all-gathered over ``vocab``)
     and the caches as ``ShardedTensor``\\ s laid out by
-    ``launch.steps.cache_pspecs``.
+    ``launch.steps.cache_layout``.
     """
     if spmd.is_sharded(params):
         return _sharded_prefill(params, batch, cfg, max_len, use_kernel)
@@ -509,11 +563,11 @@ def decode_step(params, tokens, caches: LayerCaches, cfg: ModelConfig):
 
 def _sharded_caches(cfg: ModelConfig, mesh, batch: int, max_len: int):
     """Zeroed stacked caches as ``ShardedTensor``\\ s laid out by
-    ``cache_pspecs`` (every position its own local tensors)."""
-    from repro_torch.launch.steps import cache_pspecs
+    ``cache_layout`` (every position its own local tensors)."""
+    from repro_torch.launch.steps import cache_layout
 
     like = init_caches(cfg, batch, max_len, torch.device("meta"))
-    specs = cache_pspecs(cfg, mesh, batch)
+    specs = cache_layout(cfg, mesh, batch)
     return LayerCaches(*(None if c is None else type(c)(*(
         spmd.zeros(a.shape, a.dtype, NamedSharding(mesh, sp))
         for a, sp in zip(c, cs))) for c, cs in zip(like, specs)))
@@ -546,7 +600,7 @@ def _sharded_prefill(params, batch, cfg: ModelConfig, max_len: int,
     with spmd.step_scope():
         ps = [spmd.views(params, g, layout) for g in groups]
         xs = spmd.per_group(groups, lambda g, p: _embed_in(
-            p, spmd.views(batch, g, layout), cfg), ps)
+            p, spmd.views(batch, g, layout, data=True), cfg), ps)
         positions = [torch.arange(L, dtype=torch.float32, device=g.home)
                      for g in groups]
         for i in range(cfg.num_layers):
@@ -605,7 +659,7 @@ def _prefill_mixers_sharded(p, x, cfg: ModelConfig, positions, caches,
         tail, w, Bg = ssm_mod.prefill_streams(p["ssm"], h, cfg)
         spmd.write_rows(caches.ssm.conv, layer, rows, tail)
         state = caches.ssm.state
-        k = spmd.Layout(state.mesh).model_dim(state)
+        k = spmd.Layout(state.mesh).cache_dim(state)
         if k is None:
             spmd.write_rows(state, layer, rows,
                             ssm_mod.terminal_state(w, Bg, cfg))
@@ -637,7 +691,8 @@ def _sharded_decode(params, tokens, caches: LayerCaches, cfg: ModelConfig):
     with spmd.step_scope():
         ps = [spmd.views(params, g, layout) for g in groups]
         xs = spmd.per_group(groups, lambda g, p: spmd.embedding(
-            spmd.views(tokens, g, layout)[:, None], p["embed"]), ps)
+            spmd.views(tokens, g, layout, data=True)[:, None], p["embed"]),
+            ps)
 
         def mixers(g, lp, x, r, i):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -10,7 +10,8 @@ tokens from the same weights.
 
 Sharded params (``ShardedTensor``\\ s laid out by
 ``train.trainer.make_shardings``) are served under their mesh's ambient
-``mesh_context``, as the reference's engine runs unmodified on a mesh:
+``mesh_context`` (with ``sharding.policy_kw("dp_only")`` for the dp-only
+policy), as the reference's engine runs unmodified on a mesh:
 each wave's prompt batch and each step's tokens are laid out over the
 ``batch`` axes, prefill and decode run sharded
 (``transformer.prefill``/``decode_step``), the caches stay sharded, and

@@ -37,7 +37,7 @@ from repro_torch.models import transformer
 from . import checkpoint as ckpt
 from .optimizer import (
     AdamWState, adamw_apply, adamw_init, adamw_update, cosine_schedule,
-    opt_state_axes, zero1_logical,
+    opt_state_axes,
 )
 
 
@@ -51,22 +51,6 @@ def value_and_grad(loss_fn: Callable, params, batch) -> tuple:
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), tuple(torch.zeros_like(p) if g is None else g
                                 for p, g in zip(leaves, grads))
-
-
-def _zero2_constrain(grads, cfg: ModelConfig):
-    """ZeRO-2-style grad sharding: the gradients laid out as the optimizer
-    state (zero1), so that each microbatch's gradients are reduce-scattered
-    over the data axes instead of held whole in float32 on every device.
-    The identity without an active mesh."""
-    if shd.active_mesh() is None:
-        return grads
-    data_size = shd.data_parallel_size()
-
-    def leaf(ax, g):
-        return shd.logical_constraint(g, *zero1_logical(ax, g.shape,
-                                                        data_size))
-
-    return shd.map_axes(leaf, transformer.axes(cfg), grads)
 
 
 def make_shardings(cfg: ModelConfig, tcfg: TrainConfig, mesh):
@@ -107,13 +91,18 @@ def _sharded_step(params, opt: AdamWState, batch, *, cfg, tcfg, loss_fn,
         groups = layout.runners(batch)
         home = groups[0].home
         leaves, per_leaf = spmd.grad_leaves(params, groups, layout)
+        # ZeRO-2: each microbatch's gradients are reduced straight into the
+        # optimizer state's layout (the reference constrains them to the
+        # zero1 layout of the ambient data axes, which is the same layout
+        # wherever the batch axes are the data axes)
+        g_shard = tree.tree_map(lambda x: x.sharding, opt.m)
         n = tcfg.microbatches
         loss, acc = None, None
         for mb in ([batch] if n == 1 else
                    spmd.microbatches(batch, n, groups)):
             mb_loss = loss_fn(leaves, mb)
-            g = _zero2_constrain(tree.unflatten(params, spmd.partial_grads(
-                mb_loss, leaves, per_leaf)), cfg)
+            g = spmd.device_put(tree.unflatten(params, spmd.partial_grads(
+                mb_loss, leaves, per_leaf)), g_shard)
             mb_loss = mb_loss.detach()
             if acc is None:
                 loss, acc = mb_loss, g
@@ -125,11 +114,6 @@ def _sharded_step(params, opt: AdamWState, batch, *, cfg, tcfg, loss_fn,
             inv = 1.0 / n
             loss = loss * inv
             torch._foreach_mul_(_shards(acc), inv)
-        for got, m in zip(tree.leaves(acc), tree.leaves(opt.m)):
-            if got.sharding.spec != m.sharding.spec:
-                raise ValueError(
-                    f"the optimizer state's layout {m.sharding.spec} is not "
-                    f"its zero1 layout {got.sharding.spec} (make_shardings)")
         gnorm = spmd.global_norm(acc, home)
         step = np.empty(opt.step.shards.shape, dtype=object)
         for pos in np.ndindex(step.shape):

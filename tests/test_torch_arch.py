@@ -218,3 +218,72 @@ def test_train_cli_on_cpu_for_other_archs(arch, tmp_path, capsys):
                   "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "[trainer] step 2 loss=" in out
+
+
+# ---------------------------------------------------------------------------
+# the layout knobs: ssm_fused_proj=False and kv_replicate
+# ---------------------------------------------------------------------------
+
+def test_ssm_split_proj_variant():
+    """``tests/test_arch_smoke.py::test_ssm_split_proj_variant``: mamba2
+    with per-stream projections (``ssm_fused_proj=False``) trains to a
+    finite loss, and a decode step after a 16-token prefill gives the
+    17-token prefill's logits (2e-3); the loss and both logits are also
+    the reference's on its own weights (``TOL``)."""
+    B = 2
+    jcfg = dataclasses.replace(jconfig.get_config("mamba2-370m-smoke"),
+                               ssm_fused_proj=False, dtype="float32")
+    cfg = dataclasses.replace(tconfig.get_config("mamba2-370m-smoke"),
+                              ssm_fused_proj=False, dtype="float32")
+    jparams = j_tf.init(jcfg, jax.random.PRNGKey(0))
+    params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                         jparams))
+    assert "w_x" in params["layers"]["ssm"]
+    assert "w_in" not in params["layers"]["ssm"]
+    jtoks = jax.random.randint(jax.random.PRNGKey(3), (B, 17), 0,
+                               jcfg.vocab_size)
+    toks = torch.tensor(np.asarray(jtoks))
+    loss = t_tf.train_loss(params, {"tokens": toks[:, :-1],
+                                    "labels": toks[:, 1:]}, cfg)
+    assert bool(torch.isfinite(loss))
+    jloss = j_tf.train_loss(jparams, {"tokens": jtoks[:, :-1],
+                                      "labels": jtoks[:, 1:]}, jcfg)
+    _close(loss, jloss)
+    pre, caches = t_tf.prefill(params, {"tokens": toks[:, :16]}, cfg,
+                               max_len=64)
+    dec, _ = t_tf.decode_step(params, toks[:, 16], caches, cfg)
+    full, _ = t_tf.prefill(params, {"tokens": toks}, cfg, max_len=64)
+    np.testing.assert_allclose(_np(dec), _np(full[:, 0]), rtol=2e-3,
+                               atol=2e-3)
+    jfull, _ = j_tf.prefill(jparams, {"tokens": jtoks}, jcfg, max_len=64)
+    _close(full, jfull)
+    _close(pre, j_tf.prefill(jparams, {"tokens": jtoks[:, :16]}, jcfg,
+                             max_len=64)[0])
+
+
+def test_kv_replicate_is_exact():
+    """``tests/test_beyond_paper.py::test_kv_replicate_is_exact``:
+    ``kv_replicate`` changes the sharding metadata (``wk``/``wv``'s
+    ``head`` axis left unnamed), never the math: qwen3's loss with and
+    without it agrees to 1e-7, and with the reference's loss."""
+    jcfg = dataclasses.replace(jconfig.get_config("qwen3-4b-smoke"),
+                               dtype="float32")
+    cfg = dataclasses.replace(tconfig.get_config("qwen3-4b-smoke"),
+                              dtype="float32")
+    cfg_r = dataclasses.replace(cfg, kv_replicate=True)
+    assert t_tf.axes(cfg_r)["layers"]["attn"]["wk"][-1] is None
+    assert t_tf.axes(cfg)["layers"]["attn"]["wk"][-1] == "head"
+    jparams = j_tf.init(jcfg, jax.random.PRNGKey(0))
+    params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                         jparams))
+    jtoks = jax.random.randint(jax.random.PRNGKey(1), (2, 16), 0,
+                               jcfg.vocab_size)
+    toks = torch.tensor(np.asarray(jtoks))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    a = t_tf.train_loss(params, batch, cfg)
+    b = t_tf.train_loss(params, batch, cfg_r)
+    np.testing.assert_allclose(float(a), float(b), rtol=1e-7)
+    want = j_tf.train_loss(jparams, {"tokens": jtoks[:, :-1],
+                                     "labels": jtoks[:, 1:]},
+                           dataclasses.replace(jcfg, kv_replicate=True))
+    _close(b, want)

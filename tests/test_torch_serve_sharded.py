@@ -38,7 +38,7 @@ from repro_torch.config import TrainConfig, get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.distributed import Mesh, mesh_context, spmd
 from repro_torch.distributed import sharding as shd
-from repro_torch.launch.steps import cache_pspecs
+from repro_torch.launch.steps import cache_layout, cache_pspecs
 from repro_torch.models import transformer as t_tf
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.train.trainer import make_shardings
@@ -136,13 +136,14 @@ def _close_caches(got: dict, want, label):
         _close(got[k], w, f"{label} {k}")
 
 
-def _sharded_run(name, shape, toks, steps):
-    """The sharded prefill and three decode steps on the given tokens:
-    ``[(logits, caches gathered, collective log)]``."""
+def _sharded_run(name, shape, toks, steps, policy="tp"):
+    """The sharded prefill and three decode steps on the given tokens,
+    under the mesh context of ``policy``: ``[(logits, caches gathered,
+    collective log)]``."""
     _, cfg, _, nparams = _model(name)
     mesh = _mesh(shape)
     out = []
-    with mesh_context(mesh):
+    with mesh_context(mesh, **shd.policy_kw(policy)):
         p_sh, _ = make_shardings(cfg, TrainConfig(), mesh)
         params = spmd.device_put(lm_params_from_numpy(nparams), p_sh)
         batch = torch.as_tensor(toks)
@@ -151,7 +152,9 @@ def _sharded_run(name, shape, toks, steps):
             logits, caches = t_tf.prefill(params, {"tokens": spmd.device_put(
                 batch, shd.named_sharding(batch.shape, ("batch", None)))},
                 cfg, MAX_LEN)
-        specs = cache_pspecs(cfg, mesh, batch.shape[0])
+        specs = cache_layout(cfg, mesh, batch.shape[0])
+        if policy == "tp":
+            assert specs == cache_pspecs(cfg, mesh, batch.shape[0])
         for (k, x), (_, sp) in zip(_fields(caches).items(),
                                    _fields(specs).items()):
             assert x.sharding.spec == sp, k
@@ -311,3 +314,79 @@ def test_sharded_params_take_no_tree_of_plain_tokens():
             t_tf.prefill(params, {"tokens": torch.zeros(
                 (B, L), dtype=torch.int32)}, cfg, MAX_LEN)
     assert tree.leaves(params)[0].mesh is mesh
+
+
+# ---------------------------------------------------------------------------
+# the dp-only policy: the batch over ("data", "model")
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,shape", [
+    (HYMBA, (4, 2)), (GRANITE, (4, 2)), (SMOLLM, (4, 2)), (SMOLLM, (2, 2)),
+])
+def test_dp_only_prefill_and_decode_match_single_device_and_reference(
+        name, shape):
+    """Under dp-only every weight but the vocab-split table is replicated
+    and each position runs its own rows (one row a position at (4, 2),
+    two at (2, 2)): the logits and caches of prefill and three decode
+    steps against the single-device run and the reference."""
+    toks, steps, want = _reference(name, B)
+    got = _sharded_run(name, shape, toks, steps, policy="dp_only")
+    single = _single_run(name, toks, steps)
+    for i in (0, 1, 3):
+        (logits, caches, _), (jl, jc), (sl, sc) = got[i], want[i], single[i]
+        label = f"dp-only {name} {shape} step {i}"
+        _close(logits, jl, label)
+        _close(logits, _np(sl), label + " vs single-device")
+        _close_caches(caches, jc, label)
+        for k, v in sc.items():
+            _close(caches[k], _np(v), f"{label} {k} vs single-device")
+
+
+def test_dp_only_caches_follow_the_batch_and_the_log_is_the_table():
+    """dp-only lays each cache's batch over ("data", "model") and splits
+    nothing over the model axis (``cache_layout``; the reference's
+    ``cache_pspecs`` keeps kv on the model axis).  smollm's one collective
+    a call is the vocab-split table's all-gather (its 128 x 64 float32
+    rows, over the model axis's 2), made once and read by both the
+    embedding and the tied logits."""
+    mesh = _mesh((4, 2))
+    with mesh_context(mesh, **shd.policy_kw("dp_only")):
+        h = cache_layout(get_config(HYMBA), mesh, B)
+        s = cache_layout(get_config(SMOLLM), mesh, B)
+    rows = ("data", "model")
+    assert h.attn.k == (None, rows, None, None, None)
+    assert h.ssm.conv == (None, rows, None, None)
+    assert h.ssm.state == (None, rows, None, None, None)
+    assert s.attn.k == (None, rows, None, None, None)
+    assert cache_pspecs(get_config(SMOLLM), mesh, B).attn.k == (
+        None, "data", "model", None, None)
+    toks, steps, _ = _reference(SMOLLM, B)
+    got = _sharded_run(SMOLLM, (4, 2), toks, steps[:1], policy="dp_only")
+    for _, _, log in got:
+        assert list(log) == [("all-gather", 128 * 64 * 4, 2)]
+
+
+@pytest.mark.parametrize("name", [SMOLLM, HYMBA])
+def test_dp_only_serve_engine_matches_reference_engine(name):
+    """The engine's waves of 4 on a (2, 2) mesh under dp-only (one row a
+    position): the reference engine's tokens."""
+    jcfg, cfg, jparams, nparams = _model(name)
+    rng = np.random.default_rng(7)
+    lens, new = (12, 7, 20, 16, 9, 5), (4, 6, 3, 5, 2, 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    want = JServeEngine(jcfg, jparams, batch=4, max_len=MAX_LEN).generate(
+        [JRequest(prompt=p, max_new_tokens=m) for p, m in zip(prompts, new)])
+    mesh = _mesh((2, 2))
+    with mesh_context(mesh, **shd.policy_kw("dp_only")):
+        p_sh, _ = make_shardings(cfg, TrainConfig(), mesh)
+        assert p_sh["embed"].spec == ("model", None)
+        assert not any(p_sh["layers"]["attn"]["wq"].spec)
+        params = spmd.device_put(lm_params_from_numpy(nparams), p_sh)
+        got = ServeEngine(cfg, params, batch=4, max_len=MAX_LEN,
+                          device="cpu", use_kernel=False).generate(
+            [Request(prompt=p, max_new_tokens=m)
+             for p, m in zip(prompts, new)])
+    for g, w, m in zip(got, want, new):
+        assert g.out.shape == (m,)
+        np.testing.assert_array_equal(g.out, w.out)

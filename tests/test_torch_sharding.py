@@ -21,6 +21,7 @@ kind are predicted from the specs.
 import dataclasses
 import gc
 import json
+from collections import Counter
 import os
 import subprocess
 import sys
@@ -282,27 +283,39 @@ def _mesh(shape) -> Mesh:
                 ("data", "model"))
 
 
-def _setup(arch, microbatches):
-    jcfg = dataclasses.replace(jconfig.get_config(arch), dtype="float32")
-    cfg = dataclasses.replace(tconfig.get_config(arch), dtype="float32")
+def _knobs(arch) -> tuple:
+    """``"name+key=value+..."``: the config name and its overrides."""
+    name, *kv = arch.split("+")
+    over = {}
+    for k, v in (x.split("=") for x in kv):
+        over[k] = {"True": True, "False": False}.get(v, v)
+    return name, over
+
+
+def _setup(arch, microbatches, batch=B, seq=S, **over):
+    name, knobs = _knobs(arch)
+    knobs.update(over, dtype="float32")
+    jcfg = dataclasses.replace(jconfig.get_config(name), **knobs)
+    cfg = dataclasses.replace(tconfig.get_config(name), **knobs)
     kw = dict(total_steps=4, warmup_steps=1, microbatches=microbatches)
     jparams = j_tf.init(jcfg, jax.random.PRNGKey(0))
     jbatch = {
-        "tokens": jax.random.randint(jax.random.PRNGKey(1), (B, S), 0,
-                                     jcfg.vocab_size),
-        "labels": jax.random.randint(jax.random.PRNGKey(2), (B, S), 0,
-                                     jcfg.vocab_size)}
+        "tokens": jax.random.randint(jax.random.PRNGKey(1), (batch, seq),
+                                     0, jcfg.vocab_size),
+        "labels": jax.random.randint(jax.random.PRNGKey(2), (batch, seq),
+                                     0, jcfg.vocab_size)}
     nparams = jax.tree_util.tree_map(np.asarray, jparams)
     batch = {k: torch.tensor(np.asarray(v)) for k, v in jbatch.items()}
     return (jcfg, cfg, jconfig.TrainConfig(**kw), tconfig.TrainConfig(**kw),
             jparams, jbatch, nparams, batch)
 
 
-def _sharded(cfg, tcfg, nparams, batch, shape):
-    """One sharded step from the weights ``nparams``; returns the params
-    gathered, the optimizer state and the metrics."""
+def _sharded(cfg, tcfg, nparams, batch, shape, policy="tp"):
+    """One sharded step from the weights ``nparams`` under the mesh context
+    of ``policy``; returns the params gathered, the optimizer state and
+    the metrics."""
     mesh = _mesh(shape)
-    with mesh_context(mesh):
+    with mesh_context(mesh, **shd.policy_kw(policy)):
         p_sh, o_sh = make_shardings(cfg, tcfg, mesh)
         b_sh = tree.tree_map(lambda x: shd.named_sharding(
             x.shape, ("batch",) + (None,) * (x.dim() - 1)), batch)
@@ -363,12 +376,20 @@ def test_sharded_train_step_matches_single_device_and_reference(
     ("granite-moe-3b-a800m-smoke", (4, 2), 2),
     ("hymba-1.5b-smoke", (4, 2), 1),
     ("hymba-1.5b-smoke", (4, 2), 2),
+    ("hymba-1.5b-smoke+ssm_fused_proj=False", (2, 2), 1),
+    ("qwen3-4b-smoke+kv_replicate=True", (2, 2), 1),
+    ("qwen3-4b-smoke+kv_replicate=True", (2, 4), 1),
 ])
 def test_sharded_train_step_other_architectures(arch, shape, microbatches):
     """granite at model 5 (expert parallelism: its 5 experts split) and at
     model 2 (experts on d_ff, head-local attention); hymba at model 2 (q/k/v
-    on ``head``, the SSM's ``ssm_x``/``ssm_heads`` weights gathered), each
-    against the port's single-device step and the reference's."""
+    on ``head``, the SSM's ``ssm_x``/``ssm_heads`` weights gathered), also
+    with per-stream SSM projections (``ssm_fused_proj=False``: ``w_x`` &c.
+    split on their own axes, no gathered ``w_in``); qwen3 with
+    ``kv_replicate`` (at model 2 its kv heads still split; at model 4,
+    where its 2 kv heads do not divide, ``wk``/``wv`` stay whole instead
+    of splitting ``head``), each against the port's single-device step and
+    the reference's."""
     (jcfg, cfg, jtcfg, tcfg, jparams, jbatch, nparams,
      batch) = _setup(arch, microbatches)
     got, _, m = _sharded(cfg, tcfg, nparams, batch, shape)
@@ -382,7 +403,16 @@ def test_sharded_train_step_other_architectures(arch, shape, microbatches):
         np.asarray, jp)), "reference")
     with mesh_context(_mesh(shape)):
         specs = shd.tree_pspecs(t_tf.axes(cfg), t_tf.shapes(cfg))
-    if arch.startswith("granite") and shape[1] == 5:
+    if "ssm_fused_proj" in arch:
+        ssm = specs["layers"]["ssm"]
+        assert "w_in" not in ssm
+        assert ssm["w_x"] == ssm["w_z"] == (None, None, "model")
+        assert ssm["conv_x_w"] == (None, None, "model")
+    elif "kv_replicate" in arch:
+        attn = specs["layers"]["attn"]
+        assert attn["wk"] == ((None, None, "model", None) if shape[1] == 2
+                              else (None, None, None, None))
+    elif arch.startswith("granite") and shape[1] == 5:
         assert specs["layers"]["moe"]["wu"] == (None, "model", None, None)
     elif arch.startswith("granite"):
         assert specs["layers"]["moe"]["wu"] == (None, None, None, "model")
@@ -462,17 +492,187 @@ def test_collective_log_counts_are_exact():
 
 
 def test_sharded_execution_refuses_overlapping_axes():
-    """The dp-only policy puts the batch on the model axis too: its rules
-    match the reference (above), but the executor refuses the layout."""
+    """The dp-only policy puts the batch on the model axis too: the
+    executor runs it, each position a data group of its own, and a weight
+    split over the model axis (the vocab-split table) read from the
+    group's line; a mesh axis that is neither data nor model is still
+    refused."""
     mesh = _mesh((2, 2))
-    kw = dict(batch_axes=("data", "model"),
-              tp_exclude=frozenset(shd.MODEL_PRIORITY) - {"vocab"})
-    with mesh_context(mesh, **kw):
-        with pytest.raises(ValueError, match="disjoint"):
-            spmd.Layout(mesh)
+    with mesh_context(mesh, **shd.policy_kw("dp_only")):
+        layout = spmd.Layout(mesh)
+        assert layout.overlap and layout.data_axes == ("data", "model")
+        groups = layout.groups()
+        assert [g.positions for g in groups] == [[(0, 0)], [(0, 1)],
+                                                 [(1, 0)], [(1, 1)]]
+        assert layout.line((1, 0)) == [(1, 0), (1, 1)]
+        table = spmd.device_put(torch.arange(8.).reshape(4, 2),
+                                shd.named_sharding((4, 2), ("vocab", None)))
+        batch = spmd.device_put(torch.arange(4.), shd.named_sharding(
+            (4,), ("batch",)))
+        assert layout.model_dim(table) == 0
+        assert layout.model_dim(batch) is None
+        w = spmd.views({"t": table}, groups[3], layout)["t"]
+        assert w.gather and w.home == groups[3].home
+        log = spmd.CollectiveLog()
+        with spmd.recording(log):
+            got = spmd.embedding(torch.tensor([3, 0]), w)
+        assert got.tolist() == [[6., 7.], [0., 1.]]
+        assert list(log) == [("all-gather", 4 * 2 * 4, 2)]
+        assert spmd.views(batch, groups[2], layout, data=True).tolist() == [
+            2.]
     with pytest.raises(ValueError, match="data and model axes only"):
         spmd.Layout(Mesh(np.array(["cpu"] * 4).reshape(2, 2),
                          ("data", "pipe")))
+
+
+# ---------------------------------------------------------------------------
+# the dp-only policy and sequence parallelism
+# ---------------------------------------------------------------------------
+
+ARCHS3 = ["smollm-135m-smoke", "hymba-1.5b-smoke",
+          "granite-moe-3b-a800m-smoke"]
+
+
+def _reference_step(jcfg, jtcfg, jparams, jbatch):
+    jp, _, jm = jax.jit(j_trainer.make_train_step(jcfg, jtcfg))(
+        jparams, j_opt.adamw_init(jparams), jbatch)
+    return float(jm["loss"]), lm_params_from_numpy(jax.tree_util.tree_map(
+        np.asarray, jp))
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS3)
+def test_dp_only_train_step_matches_single_device_and_reference(
+        arch, microbatches):
+    """dp-only on a (4, 2) mesh: a batch of 16 rows over ("data",
+    "model"), every position a data group (two rows, one at 2
+    microbatches), the weights replicated but the vocab-split table;
+    against the port's single-device step and the reference's.  The rows
+    are 16 tokens long, the module's 256 tokens a step (at 16 x 32, one
+    element of smollm's tied table has a gradient of rounding noise,
+    ~7e-10, which AdamW's eps of 1e-8 turns into a step past
+    ``PARAM_TOL``: there the port's single-device step differs from the
+    reference's as well)."""
+    (jcfg, cfg, jtcfg, tcfg, jparams, jbatch, nparams,
+     batch) = _setup(arch, microbatches, batch=16, seq=16)
+    got, opt, m = _sharded(cfg, tcfg, nparams, batch, (4, 2), "dp_only")
+    p1, _, m1 = _single(cfg, tcfg, nparams, batch)
+    jloss, jp = _reference_step(jcfg, jtcfg, jparams, jbatch)
+    for want in (float(m1["loss"]), jloss):
+        np.testing.assert_allclose(float(m["loss"]), want, **LOSS_TOL)
+    _close_params(got, p1, "port")
+    _close_params(got, jp, "reference")
+    assert opt.m["embed"].sharding.spec == ("model", None)
+    assert {c.group for c in m["collectives"]} <= {2, 8}
+
+
+@pytest.mark.parametrize("arch", ARCHS3)
+def test_seq_parallel_train_step_matches_non_sp_and_reference(arch):
+    """``seq_parallel`` on a (2, 2) mesh: the residual stream split by
+    sequence between the layers; the step equals the non-SP step, the
+    single-device step and the reference's (whose ``seq_parallel`` pin is
+    the identity without a mesh), and its log differs from the non-SP
+    one."""
+    (jcfg, cfg, jtcfg, tcfg, jparams, jbatch, nparams,
+     batch) = _setup(arch, 1, seq_parallel=True)
+    got, _, m = _sharded(cfg, tcfg, nparams, batch, (2, 2))
+    base, _, m0 = _sharded(dataclasses.replace(cfg, seq_parallel=False),
+                           tcfg, nparams, batch, (2, 2))
+    p1, _, m1 = _single(cfg, tcfg, nparams, batch)
+    jloss, jp = _reference_step(jcfg, jtcfg, jparams, jbatch)
+    for want in (float(m0["loss"]), float(m1["loss"]), jloss):
+        np.testing.assert_allclose(float(m["loss"]), want, **LOSS_TOL)
+    _close_params(got, p1, "port")
+    _close_params(got, jp, "reference")
+    for path, x in base.items():
+        np.testing.assert_allclose(got[path].numpy(), x.numpy(),
+                                   err_msg=f"vs non-SP {path}", **PARAM_TOL)
+    assert m["collectives"].by_kind() != m0["collectives"].by_kind()
+    assert m["collectives"].by_kind()["reduce-scatter"][0] > m0[
+        "collectives"].by_kind()["reduce-scatter"][0]
+
+
+def _predicted_dp_only_log(cfg, tcfg, mesh, microbatches, groups) -> dict:
+    """The collectives of one dp-only step, from the specs: the vocab-split
+    table's all-gather (once a step, over the model axis); per microbatch,
+    per parameter leaf, its gradient reduced over every group into its
+    optimizer-state layout (a reduce-scatter where that layout splits it
+    over a data axis, the model axis counting as one; else an
+    all-reduce), and one all-to-all per batch leaf to re-cut the
+    microbatches, and its loss terms' all-reduce; the norm's all-reduce; an
+    all-gather back into the parameter layout for each leaf whose
+    optimizer state is more split."""
+    with mesh_context(mesh, **shd.policy_kw("dp_only")):
+        p_sh, o_sh = make_shardings(cfg, tcfg, mesh)
+        data = set(spmd.Layout(mesh).data_axes)
+    split = [any(set(shd._entry_axes(e)) & data for e in s.spec)
+             for s in tree.leaves(o_sh.m)]
+    gather = [int(np.prod(o.parts(len(o.spec)))) >
+              int(np.prod(p.parts(len(o.spec))))
+              for o, p in zip(tree.leaves(o_sh.m), tree.leaves(p_sh))]
+    out = {"all-gather": 1 + sum(gather),
+           "reduce-scatter": microbatches * split.count(True),
+           "all-reduce": 1 + microbatches * (1 + split.count(False))}
+    if microbatches > 1:
+        out["all-to-all"] = 2
+    return {k: v for k, v in out.items() if v}
+
+
+def test_dp_only_and_seq_parallel_logs_are_exact():
+    """smollm's dp-only step on (4, 2) (16 rows; 1 and 2 microbatches) and
+    its ``seq_parallel`` step on (2, 2), each log predicted from the specs.
+
+    Sequence parallelism, against the non-SP log (``_predicted_log``), per
+    layer: each forward run's two all-reduces of the attention and MLP
+    outputs become reduce-scatters over the sequence, and their inputs
+    are all-gathered over the sequence first (2 per run); in backward,
+    each output's all-gather of its gradient, each input's reduce-scatter
+    of its gradient in place of the all-reduce that ``replicate`` logs,
+    and the norms' weights (``ln1``, ``ln2``), now applied per block,
+    all-reduce their gradients; once a step, the stream's split (backward:
+    an all-gather) before the layers and its all-gather after them."""
+    cfg = dataclasses.replace(tconfig.get_config("smollm-135m-smoke"),
+                              dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    nparams = tree.tree_map(lambda x: x.numpy(), t_tf.init(cfg, g))
+    batch = {k: torch.randint(0, cfg.vocab_size, (16, S), generator=g)
+             for k in ("tokens", "labels")}
+    for mb in (1, 2):
+        tcfg = tconfig.TrainConfig(total_steps=4, warmup_steps=1,
+                                   microbatches=mb)
+        _, _, m = _sharded(cfg, tcfg, nparams, batch, (4, 2), "dp_only")
+        log = m["collectives"]
+        counts = {k: n for k, (n, _) in log.by_kind().items()}
+        assert counts == _predicted_dp_only_log(cfg, tcfg, _mesh((4, 2)),
+                                                mb, 8)
+        # the table: 128 x 64 float32 rows, over the model axis's 2
+        assert [c for c in log if c.group != 8] == [
+            ("all-gather", 128 * 64 * 4, 2)]
+    tcfg = tconfig.TrainConfig(total_steps=4, warmup_steps=1)
+    b8 = {k: v[:B] for k, v in batch.items()}
+    _, _, m0 = _sharded(cfg, tcfg, nparams, b8, (2, 2))
+    _, _, m = _sharded(dataclasses.replace(cfg, seq_parallel=True), tcfg,
+                       nparams, b8, (2, 2))
+    n, runs = cfg.num_layers, 2 if cfg.remat else 1
+    base = _predicted_log(cfg, tcfg, _mesh((2, 2)))
+    assert {k: c for k, (c, _) in m0["collectives"].by_kind().items()
+            } == base
+    want = {"all-reduce": base["all-reduce"] - runs * 2 * n,
+            "all-gather": base["all-gather"] + runs * 2 * n + 2 * n + 2,
+            "reduce-scatter": base["reduce-scatter"] + runs * 2 * n + 2 * n}
+    log = m["collectives"]
+    assert {k: c for k, (c, _) in log.by_kind().items()} == want
+    # entry for entry: a data group's (4, 32, 64) float32 stream is
+    # all-gathered whole and reduce-scattered into halves of the
+    # sequence; the norms' gradients are (64,) float32
+    full = 4 * S * 64 * 4
+    sp, base_log = Counter(log), Counter(m0["collectives"])
+    assert sp - base_log == Counter({
+        ("all-gather", full, 2): runs * 2 * n + 2 * n + 2,
+        ("reduce-scatter", full // 2, 2): runs * 2 * n + 2 * n,
+        ("all-reduce", 64 * 4, 2): 2 * n})
+    assert base_log - sp == Counter({("all-reduce", full, 2):
+                                     runs * 2 * n + 2 * n})
 
 
 def test_recomputed_collectives_are_logged_from_autograd_threads():
