@@ -129,6 +129,16 @@ Phases, each of which fails the run on any miss:
                  ``StreamingEngine(lag=64, batch=64)`` on a batch axis of
                  2 (launches = waves x 2, final windows < 1e-9 x scale of
                  offline);
+3i'. user scans -- ``scan_combine_fn()``, the pairwise ``lqt_combine``
+                 kernel as the combine of ``core.pscan`` scans, on the
+                 estimation cell's single record: in ``parallel_rts``
+                 (one launch per combine of the suffix scan's tree: 21)
+                 against the default ``parallel_rts`` (max|dx| < 1e-8),
+                 and in ``sharded_scan`` at P = 4 on a time mesh of
+                 cuda:0 (4 local scans, 3 carry combines, 3 fix-ups and a
+                 stitch: 75) against the plain suffix scan (normwise
+                 < 1e-8); exact launches predicted from T, ms a path
+                 beside the plain combine's;
 3j. lqt timing -- the scan kernel at every path's scans
                  (CUDA events around a CUDA-graph replay of back-to-back
                  scans, eager calls beside), its bound, the per-launch bound
@@ -136,7 +146,9 @@ Phases, each of which fails the run on any miss:
                  depth sweep over one record (its slope is the latency per
                  tree level); the pairwise kernel at the launch shapes the
                  per-level scan had (graph replay, eager calls, profiler),
-                 beside its plain version and bound;
+                 beside its plain version and bound, summed over the user
+                 scans' launches (its row in the report) and over the
+                 per-level scan's shapes of the estimation paths;
 4. serving    -- ``ServeEngine.generate`` on hymba-1.5b at full width in
                  bfloat16 (random weights from a seeded generator): 16
                  requests of 2048 prompt tokens and 32 new tokens in two
@@ -191,7 +203,16 @@ Phases, each of which fails the run on any miss:
                  first its float32 gate at 2 layers, 2 x 512 tokens, one
                  step against the single-device step at the reference
                  test's tolerances (loss, gradients, params outside
-                 AdamW's eps band); the same for granite-moe-3b after 5h
+                 AdamW's eps band); in hymba's cell a sharded checkpoint
+                 of (params, opt) after step 2 (bytes, seconds, GB/s;
+                 every shard equal to the file), restored onto the same
+                 mesh (every shard bit for bit) and step 3 run from it
+                 (within 1e-2 of the uninterrupted step 3, the exact
+                 difference printed), and a float32 gate: a save after
+                 one 2 x 2 step at 2 layers, the second step resumed on a
+                 (4, 1) mesh and on one device against the uninterrupted
+                 one at the reference test's tolerances, with exact
+                 ``simt`` launches; the same for granite-moe-3b after 5h
                  on a 2 x 4 mesh (expert parallelism, 10 experts a shard;
                  head-local attention, 6/2 heads a shard); then hymba's
                  cell again with ``seq_parallel`` (the residual stream
@@ -338,6 +359,8 @@ SP_STREAM_TRACKS, SP_STREAM_N = 64, 200
 TIME_SHARDS = (2, 4, 8)
 DIST_TOL, DIST_KERNEL_TOL, DIST_SEQ_TOL = 1e-9, 1e-8, 1e-7
 BATCH_SHARDS = 4
+# the pairwise kernel in user scans: sharded_scan's time shards
+USER_SCAN_SHARDS = 4
 SHARD_STREAM_N = 200
 # kernel vs plain version: normwise relative error bound per dtype.  The
 # unpivoted Gauss-Jordan and the pivoted solve differ by round-off times
@@ -426,6 +449,16 @@ SHARD_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 SHARD_PARAM_TOL = dict(rtol=5e-4, atol=5e-5)
 SHARD_ADAM_BAND = 100       # times AdamW's eps
 SHARD_BF16_RTOL = 1e-2
+# sharded checkpoint: hymba's 2 x 2 cell saves (params, opt) after step
+# SHARD_CKPT_STEP of its SHARD_STEPS, restores it onto the same mesh (every
+# shard bit for bit) and runs the next step from the file (its loss within
+# SHARD_BF16_RTOL of the uninterrupted one); the float32 gate at
+# SHARD_CHECK_LAYERS layers, SHARD_CKPT_ROWS x SHARD_CHECK_SEQ tokens: a
+# save after one step on 2 x 2, the second step resumed on each mesh of
+# SHARD_CKPT_TARGETS (None: one device) against the uninterrupted second
+# step on 2 x 2 at SHARD_LOSS_TOL / SHARD_PARAM_TOL
+SHARD_CKPT_STEP, SHARD_CKPT_ROWS = 2, 4
+SHARD_CKPT_TARGETS = ((4, 1), None)
 # sharded serving path: the serving cell on SHARD_MESHES at full width and
 # depth; its float32 gate at 2 layers, 2 x 512 tokens and 4 decode steps
 # against the single-device run at tests/test_torch_lm.py's TOL
@@ -2417,6 +2450,125 @@ def batch_sharded_path(lqt_kernel, lqt_scan, cell: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3i'. the pairwise kernel as the combine of user scans (scan_combine_fn)
+# ---------------------------------------------------------------------------
+
+def user_scan_path(lqt_kernel, cell: dict) -> dict:
+    """``scan_combine_fn()`` (the pairwise ``lqt_combine`` kernel as a
+    ``core.pscan`` combine) in the two user scans it opens, on the
+    estimation cell's single record (nx = 4, float64, 2049 scan
+    elements): ``parallel_rts(..., combine_fn=scan_combine_fn())`` against
+    the default ``parallel_rts`` (max|dx| < 1e-8, S and v at rtol 1e-9 /
+    atol 1e-8), and ``sharded_scan(scan_combine_fn(), ...)`` of the
+    backward pass's elements at P = USER_SCAN_SHARDS on a time mesh of
+    cuda:0 against the plain ``suffix_scan`` (normwise < 1e-8); the exact
+    kernel launches of each, predicted from T, and ms a path beside the
+    plain combine's.  Returns each path's launch shapes for the kernel's
+    report row."""
+    from repro_torch.core import grid_lqt_from_linear
+    from repro_torch.core.combine import lqt_combine
+    from repro_torch.core.elements import (
+        discrete_block_elements,
+        terminal_element,
+    )
+    from repro_torch.core.parallel import parallel_rts
+    from repro_torch.core.pscan import sharded_scan, suffix_scan
+    from repro_torch.core.types import LQTElement
+    from repro_torch.kernels.lqt_combine import scan_combine_fn
+
+    grid = grid_lqt_from_linear(cell["model"], cell["ts"], cell["y1"])
+    n = N_BLOCKS + 1
+    P = USER_SCAN_SHARDS
+    cut, local = n // P * P, n // P
+    tail = n - cut
+    shapes = {
+        "parallel_rts": scan_lane_counts(n, 1),
+        "sharded_scan": (P * scan_lane_counts(local, 1) + [1] * (P - 1)
+                         + [local] * (P - 1) + scan_lane_counts(tail, 1)
+                         + ([cut] if tail else []))}
+    log(f"Wiener single record, T={N_BLOCKS} blocks x nsub={NSUB}, "
+        f"discrete, float64: {n} scan elements; predicted lqt_combine "
+        f"launches: parallel_rts one per combine of the suffix scan's tree "
+        f"({len(shapes['parallel_rts'])}), sharded_scan at P = {P}: "
+        f"{P} local scans of {local} ({P} x "
+        f"{len(scan_lane_counts(local, 1))}), {P - 1} carry combines, "
+        f"{P - 1} fix-ups, {'one stitch of the ' + str(tail) + '-element tail' if tail else 'no tail'} "
+        f"({len(shapes['sharded_scan'])})")
+    out = {}
+
+    def counted(fn):
+        lqt_kernel.reset_launch_count()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, lqt_kernel.launch_count()
+
+    def rts_kernel():
+        return parallel_rts(grid, NSUB, "discrete",
+                            combine_fn=scan_combine_fn())
+
+    def rts_plain():
+        return parallel_rts(grid, NSUB, "discrete")
+
+    sol, launches = counted(rts_kernel)
+    ref = rts_plain()
+    dx = float((sol.x - ref.x).abs().max())
+    sv = all(torch.allclose(getattr(sol, f), getattr(ref, f), rtol=1e-9,
+                            atol=1e-8) for f in ("S", "v"))
+    ms, plain_ms = cuda_time_ms(rts_kernel, 5), cuda_time_ms(rts_plain, 5)
+    log(f"  parallel_rts(combine_fn=scan_combine_fn()): lqt_combine "
+        f"launches {launches} (predicted {len(shapes['parallel_rts'])}); "
+        f"vs the default parallel_rts: max|dx| {dx:.3e} (tol 1e-8), S/v "
+        f"within rtol 1e-9 atol 1e-8: {sv}; {ms:.3f} ms a solve vs "
+        f"{plain_ms:.3f} ms with the plain combine (CUDA events, mean of 5 "
+        f"after a warm-up)")
+    if launches != len(shapes["parallel_rts"]) or not (dx < 1e-8 and sv):
+        raise AssertionError("parallel_rts with the kernel combine: "
+                             f"launches {launches}, max|dx| {dx:.3e}, S/v "
+                             f"{sv}")
+    out["user scans: parallel_rts"] = {
+        "shapes": shapes["parallel_rts"], "nx": 4,
+        "pairwise_launches": launches, "path_ms": ms,
+        "path_plain_ms": plain_ms}
+
+    blocks, _ = discrete_block_elements(grid, NSUB)
+    last = terminal_element(grid)
+    elems = LQTElement(*(torch.cat([a, t[None]]) for a, t in zip(blocks,
+                                                                last)))
+    mesh = repeated_mesh(time=P)
+
+    def sharded_kernel():
+        return sharded_scan(scan_combine_fn(), elems, mesh=mesh,
+                            axis_name="time", reverse=True)
+
+    def sharded_plain():
+        return sharded_scan(lqt_combine, elems, mesh=mesh, axis_name="time",
+                            reverse=True)
+
+    got, launches = counted(sharded_kernel)
+    want = suffix_scan(lqt_combine, elems)
+    _, rel = compare(got, want)
+    _, rel_plain = compare(sharded_plain(), want)
+    ms, plain_ms = (cuda_time_ms(sharded_kernel, 5),
+                    cuda_time_ms(sharded_plain, 5))
+    scan_ms = cuda_time_ms(lambda: suffix_scan(lqt_combine, elems), 5)
+    log(f"  sharded_scan(scan_combine_fn(), P = {P} on cuda:0): "
+        f"lqt_combine launches {launches} (predicted "
+        f"{len(shapes['sharded_scan'])}); vs the plain suffix_scan: "
+        f"normwise {rel:.3e} (tol 1e-8; the plain combine sharded: "
+        f"{rel_plain:.3e}); {ms:.3f} ms a scan vs {plain_ms:.3f} ms sharded "
+        f"with the plain combine and {scan_ms:.3f} ms unsharded (CUDA "
+        f"events, mean of 5 after a warm-up)")
+    if launches != len(shapes["sharded_scan"]) or not rel < 1e-8:
+        raise AssertionError(f"sharded_scan with the kernel combine: "
+                             f"launches {launches}, normwise {rel:.3e}")
+    out["user scans: sharded_scan"] = {
+        "shapes": shapes["sharded_scan"], "nx": 4,
+        "pairwise_launches": launches, "path_ms": ms,
+        "path_plain_ms": plain_ms}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 3j. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
 # ---------------------------------------------------------------------------
 
@@ -2554,21 +2706,26 @@ def scan_timing(g, lqt_scan, lqt_ref, paths: dict) -> dict:
 
 
 def combine_timing(g, lqt_kernel, lqt_ref, paths: dict) -> dict:
-    """The report row of the pairwise ``lqt_combine``: the paths now run
-    their scans through ``lqt_scan``, so its launches there are 0; its time
-    is summed over the launch shapes the per-level scan had on each path
-    (CUDA events around a CUDA-graph replay of back-to-back launches), beside
-    the same launches called eagerly, the profiler's summed kernel time, the
-    plain version and the bound."""
+    """The report row of the pairwise ``lqt_combine``, summed over the
+    launch shapes of each path (CUDA events around a CUDA-graph replay of
+    back-to-back launches), beside the same launches called eagerly, the
+    profiler's summed kernel time, the plain version and the bound.  The
+    row's own numbers are those of the paths that launch it (the user
+    scans of ``scan_combine_fn``); the estimation paths run their scans
+    through ``lqt_scan`` (0 launches), and their per-level scan's shapes
+    are summed under ``per_level_*``."""
     row = {"name": "lqt_combine", "route": "cuda",
            "source": "src/repro_torch/kernels/lqt_combine/csrc/"
                      "lqt_combine.cu",
            "replaces": "src/repro/kernels/lqt_combine/kernel.py:115",
            "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
            "bound_ms": 0.0, "bound_by": None, "library_ms": None,
-           "eager_ms": 0.0, "profiler_ms": 0.0,
-           "note": "off the main paths since the scan kernel runs their "
-                   "scans; timed at the per-level scan's launch shapes",
+           "eager_ms": 0.0, "profiler_ms": 0.0, "per_level_ms": 0.0,
+           "per_level_plain_ms": 0.0, "per_level_bound_ms": 0.0,
+           "note": "launched by scan_combine_fn's user scans; the "
+                   "estimation paths' scans run in lqt_scan, and "
+                   "per_level_* time the pairwise kernel at the per-level "
+                   "scan's launch shapes there",
            "paths": {}}
     for path, info in paths.items():
         shapes, nx = info["shapes"], info["nx"]
@@ -2608,8 +2765,16 @@ def combine_timing(g, lqt_kernel, lqt_ref, paths: dict) -> dict:
             "per_level_launches": len(shapes), "ms": t["ms"],
             "eager_ms": t["eager_ms"], "profiler_ms": t["profiler_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by}
-        row["launches"] += info["pairwise_launches"]
+        for k in ("path_ms", "path_plain_ms"):
+            if k in info:
+                row["paths"][path][k] = info[k]
         row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+        if not info["pairwise_launches"]:
+            row["per_level_ms"] += t["ms"]
+            row["per_level_plain_ms"] += t["plain_ms"]
+            row["per_level_bound_ms"] += b_ms
+            continue
+        row["launches"] += info["pairwise_launches"]
         for k in ("ms", "eager_ms", "profiler_ms", "plain_ms"):
             row[k] += t[k]
         row["bound_ms"] += b_ms
@@ -3594,11 +3759,12 @@ def shard_state(cfg, tcfg, mesh, params) -> tuple:
 
 
 def sharded_steps(cfg, tcfg, mesh, params, opt, batches, loss_fn,
-                  on_step=None) -> tuple:
+                  on_step=None, on_state=None) -> tuple:
     """``make_train_step`` on sharded ``params`` and ``opt`` over
     ``batches`` (split over the data axis); ``on_step(i, None)`` before and
-    ``on_step(i, metrics)`` after step ``i``.  Returns the params, the
-    optimizer state and each step's metrics."""
+    ``on_step(i, metrics)`` after step ``i``, then ``on_state(i, params,
+    opt)``.  Returns the params, the optimizer state and each step's
+    metrics."""
     from repro_torch import tree
     from repro_torch.distributed import spmd
     from repro_torch.distributed import sharding as shd
@@ -3616,6 +3782,8 @@ def sharded_steps(cfg, tcfg, mesh, params, opt, batches, loss_fn,
             out.append(m)
             if on_step is not None:
                 on_step(i, m)
+            if on_state is not None:
+                on_state(i, params, opt)
     return params, opt, out
 
 
@@ -3628,7 +3796,6 @@ def sharded_check(cfg, shape) -> None:
     test's tolerances."""
     from repro_torch import tree
     from repro_torch.config import TrainConfig
-    from repro_torch.distributed import spmd
     from repro_torch.models import transformer
     from repro_torch.train import adamw_init, make_train_step
     from repro_torch.train.data import LMDataPipeline
@@ -3654,20 +3821,7 @@ def sharded_check(cfg, shape) -> None:
     del params
     l1, l2 = float(m1["loss"]), float(m2["loss"])
     ok = abs(l2 - l1) <= SHARD_LOSS_TOL["atol"] + SHARD_LOSS_TOL["rtol"] * abs(l1)
-    g_err, band, band_miss, miss = 0.0, 0, 0, 0
-    eps = tcfg.eps * SHARD_ADAM_BAND
-    for (path, a), b, ma, mb in zip(tree.flatten(p2), tree.leaves(p1),
-                                    tree.leaves(o2.m), tree.leaves(o1.m)):
-        a, ma = spmd.gather(a, b.device), spmd.gather(ma, b.device)
-        g_err = max(g_err, float((ma - mb).abs().max()
-                                 / mb.abs().max().clamp_min(1e-30)))
-        out = (a - b).abs() > (SHARD_PARAM_TOL["atol"]
-                               + SHARD_PARAM_TOL["rtol"] * b.abs())
-        near = (mb / (1 - tcfg.b1)).abs() < eps
-        band += int(near.sum())
-        band_miss += int((out & near).sum())
-        miss += int((out & ~near).sum())
-        del a, ma
+    g_err, miss, band, band_miss = state_errors(p2, o2, p1, o1, tcfg, 1)
     log(f"  float32 check, {SHARD_CHECK_LAYERS} layers, {rows} x "
         f"{SHARD_CHECK_SEQ} tokens, one step: loss {l2:.7f} sharded vs "
         f"{l1:.7f} single-device (rtol {SHARD_LOSS_TOL['rtol']:.0e}); "
@@ -3681,8 +3835,222 @@ def sharded_check(cfg, shape) -> None:
                              "single-device step")
 
 
+def equal_to_file(state, path) -> tuple:
+    """``(equal, shards compared)``: every shard of ``state`` (a tree of
+    ShardedTensors or tensors) against its slice of the checkpoint at
+    ``path`` (mapped, not read whole), bit for bit, on the shard's
+    device."""
+    from repro_torch import tree
+    from repro_torch.distributed import spmd
+
+    saved = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)["leaves"]
+    n = 0
+    for x, want in zip(tree.leaves(state), saved):
+        parts = ([(x.index(pos), x.shards[pos])
+                  for pos in np.ndindex(x.shards.shape)]
+                 if isinstance(x, spmd.ShardedTensor) else [((), x)])
+        for sl, t in parts:
+            n += 1
+            if t.dtype != want.dtype or not torch.equal(
+                    t, want[sl].to(t.device)):
+                return False, n
+    return True, n
+
+
+def state_errors(p, o, p_ref, o_ref, tcfg, t: int) -> tuple:
+    """A training state (ShardedTensors or tensors) against a reference
+    state after step ``t``: ``(gradient error, params outside
+    SHARD_PARAM_TOL, params in AdamW's eps band, of them outside the
+    tolerance)``.  The gradient error is each leaf's first-moment
+    max|diff| / max|m|; the band is sqrt(v_hat) < SHARD_ADAM_BAND eps,
+    where a float32 noise d in the gradient moves the update by up to
+    lr d / eps."""
+    from repro_torch import tree
+    from repro_torch.distributed import spmd
+
+    def full(x):
+        return (spmd.gather(x, "cuda") if isinstance(x, spmd.ShardedTensor)
+                else x)
+
+    eps = tcfg.eps * SHARD_ADAM_BAND
+    g_err, band, band_miss, miss = 0.0, 0, 0, 0
+    for a, b, ma, mb, vb in zip(*(tree.leaves(x) for x in (
+            p, p_ref, o.m, o_ref.m, o_ref.v))):
+        a, b, ma, mb, vb = map(full, (a, b, ma, mb, vb))
+        g_err = max(g_err, float((ma - mb).abs().max()
+                                 / mb.abs().max().clamp_min(1e-30)))
+        out = (a - b).abs() > (SHARD_PARAM_TOL["atol"]
+                               + SHARD_PARAM_TOL["rtol"] * b.abs())
+        near = (vb / (1 - tcfg.b2 ** t)).sqrt() < eps
+        band += int(near.sum())
+        band_miss += int((out & near).sum())
+        miss += int((out & ~near).sum())
+    return g_err, miss, band, band_miss
+
+
+def sharded_resume_check(cfg, shape, workdir: Path, fa_kernel,
+                         ssd_kernel) -> None:
+    """The float32 checkpoint gate: ``cfg`` at full width and
+    SHARD_CHECK_LAYERS layers, SHARD_CKPT_ROWS x SHARD_CHECK_SEQ tokens a
+    step, through the kernels: one step on a ``shape`` mesh, a save, the
+    uninterrupted second step there, and the second step resumed from the
+    file on each of SHARD_CKPT_TARGETS (a (4, 1) mesh: ZeRO-1 over four,
+    nothing on the model axis, so every leaf's layout changes; one
+    device), each restore bit for bit the file and each resumed step
+    against the uninterrupted one at the reference test's tolerances, with
+    its exact ``simt`` launches of each LM kernel."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed import spmd
+    from repro_torch.models import transformer
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import LMDataPipeline
+    from repro_torch.train.trainer import make_shardings
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=SHARD_CHECK_LAYERS)
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1, zero1=True)
+    loss_fn = functools.partial(transformer.train_loss, cfg=cfg32,
+                                use_kernel=True)
+    params = transformer.init(
+        cfg32, torch.Generator(device="cuda").manual_seed(SEED))
+    pipe = LMDataPipeline(vocab_size=cfg.vocab_size, seq_len=SHARD_CHECK_SEQ,
+                          global_batch=SHARD_CKPT_ROWS, seed=SEED)
+    batches = [tree.tree_map(lambda t: t.cuda(), pipe.batch_at(i))
+               for i in range(2)]
+    mesh = shard_mesh(shape)
+    p, o, (m1,) = sharded_steps(cfg32, tcfg, mesh, *shard_state(
+        cfg32, tcfg, mesh, params), batches[:1], loss_fn)
+    like = (params, adamw_init(params))
+    workdir.mkdir(parents=True, exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="shard_ckpt32_", dir=workdir)
+    try:
+        path = ckpt.save_checkpoint(ckdir, 1, (p, o))
+        same, n = equal_to_file((p, o), path)
+        p2, o2, (m2,) = sharded_steps(cfg32, tcfg, mesh, p, o, batches[1:],
+                                      loss_fn)
+        want = float(m2["loss"])
+        log(f"  float32 resume check, {SHARD_CHECK_LAYERS} layers, "
+            f"{SHARD_CKPT_ROWS} x {SHARD_CHECK_SEQ} tokens a step: saved "
+            f"after step 1 on {shape[0]} x {shape[1]} "
+            f"({os.path.getsize(path) / 1e6:.1f} MB; {n} shards equal to "
+            f"the file bit for bit: {same}); uninterrupted step 2 loss "
+            f"{want:.7f}")
+        ok = same
+        for target in SHARD_CKPT_TARGETS:
+            fa_kernel.reset_launch_count()
+            ssd_kernel.reset_launch_count()
+            if target is None:
+                label, runs = "one device", remat_forwards(cfg32)
+                _, (rp, ro) = ckpt.restore_checkpoint(path, like)
+                exact, n = equal_to_file((rp, ro), path)
+                rp, ro, m = make_train_step(cfg32, tcfg, loss_fn)(
+                    rp, ro, batches[1])
+                attn = runs
+            else:
+                label = f"a {target[0]} x {target[1]} mesh"
+                tmesh = shard_mesh(target)
+                with policy_context(cfg32, tmesh):
+                    shardings = make_shardings(cfg32, tcfg, tmesh)
+                _, (rp, ro) = ckpt.restore_checkpoint(path, like, shardings)
+                exact, n = equal_to_file((rp, ro), path)
+                moved = sum((a.sharding.spec, a.shards.flat[0].shape)
+                            != (b.sharding.spec, b.shards.flat[0].shape)
+                            for a, b in zip(tree.leaves((rp, ro)),
+                                            tree.leaves((p, o))))
+                label += (f" ({moved} of {len(tree.leaves(like))} leaves "
+                          f"in another spec or shard shape)")
+                rp, ro, (m,) = sharded_steps(cfg32, tcfg, tmesh, rp, ro,
+                                             batches[1:], loss_fn)
+                m_ = target[1]
+                runs = data_groups(cfg32, target) * remat_forwards(cfg32)
+                head_local = (cfg.num_heads % m_ == 0
+                              and cfg.num_kv_heads % m_ == 0)
+                attn = runs * (m_ if head_local else 1)
+            want_l = lm_kernel_launches(cfg32, runs)
+            if want_l["flash_attention"]:
+                want_l["flash_attention"] = attn
+            got = counted_launches(fa_kernel, ssd_kernel, want_l, "simt",
+                                   f"  resumed step 2 on {label}")
+            loss = float(m["loss"])
+            lok = abs(loss - want) <= (SHARD_LOSS_TOL["atol"]
+                                       + SHARD_LOSS_TOL["rtol"] * abs(want))
+            g_err, miss, band, band_miss = state_errors(rp, ro, p2, o2,
+                                                        tcfg, 2)
+            log(f"  resumed on {label}: {n} shards restored bit for bit: "
+                f"{exact}; step 2 loss {loss:.7f} vs {want:.7f} "
+                f"uninterrupted (rtol {SHARD_LOSS_TOL['rtol']:.0e}); "
+                f"gradients (first moments) max|diff| / max|m| per leaf "
+                f"{g_err:.3e} (tol {SHARD_PARAM_TOL['rtol']:.0e}); params "
+                f"outside rtol 5e-4 / atol 5e-5: {miss} (gate 0), and "
+                f"{band_miss} more among the {band} whose sqrt(v_hat) < "
+                f"{SHARD_ADAM_BAND} eps (not gated); launches {got}")
+            ok = ok and exact and lok and g_err <= SHARD_PARAM_TOL[
+                "rtol"] and miss == 0
+            del rp, ro, m
+        if not ok:
+            raise AssertionError("a float32 resume from the sharded "
+                                 "checkpoint disagrees with the "
+                                 "uninterrupted step")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def sharded_resume(cfg, tcfg, mesh, like, saved: dict, batches, loss_fn,
+                   losses: list) -> None:
+    """The bf16 checkpoint gates of a sharded training cell: the save
+    after step SHARD_CKPT_STEP (``saved``: its file, seconds and the
+    shards' comparison with the file), its size and rate; the file
+    restored onto the same mesh, every shard bit for bit; the next step
+    from it against the uninterrupted one (``losses``)."""
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import make_shardings
+
+    path, k = saved["path"], SHARD_CKPT_STEP
+    nbytes = os.path.getsize(path)
+    log(f"  sharded checkpoint after step {k} (every leaf gathered on the "
+        f"host from one copy of each slice): {nbytes / 1e9:.3f} GB saved "
+        f"in {saved['save_s']:.2f} s ({nbytes / saved['save_s'] / 1e9:.2f} "
+        f"GB/s, fsync included; the host gather alone "
+        f"{saved['gather_s']:.2f} s, "
+        f"{nbytes / saved['gather_s'] / 1e9:.2f} GB/s); {saved['n']} "
+        f"shards equal to the file bit for bit: {saved['same']}")
+    with policy_context(cfg, mesh):
+        shardings = make_shardings(cfg, tcfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, state = ckpt.restore_checkpoint(path, like, shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same, n = equal_to_file(state, path)
+    log(f"  restored onto the same mesh in {restore_s:.2f} s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s of file, each position "
+        f"copying its own slice; the file was just written: a warm read); "
+        f"step {step}; {n} shards equal to the saved ones bit for bit: "
+        f"{same}")
+    if not (saved["same"] and same and step == k):
+        raise AssertionError("the sharded checkpoint does not restore the "
+                             "saved shards")
+    _, _, (m,) = sharded_steps(cfg, tcfg, mesh, *state, batches[k:k + 1],
+                               loss_fn)
+    loss, want = float(m["loss"]), losses[k]
+    rel = abs(loss - want) / abs(want)
+    log(f"  step {k + 1} from the restored state: loss {loss!r} vs {want!r} "
+        f"uninterrupted, difference {loss - want!r} (relative {rel:.3e}, "
+        f"bound {SHARD_BF16_RTOL:.0e}); identical: {loss == want}")
+    if not rel <= SHARD_BF16_RTOL:
+        raise AssertionError(f"resumed step {k + 1}: loss {loss}, "
+                             f"uninterrupted {want}")
+
+
 def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
-                          layers: int = SHARD_LAYERS) -> tuple:
+                          layers: int = SHARD_LAYERS,
+                          workdir: Path | None = None) -> tuple:
     """The sharded training step (``repro_torch.distributed.spmd``) on
     ``cfg`` (its policy and ``seq_parallel``) at full width: the float32
     gate, then SHARD_STEPS bf16 AdamW steps at ``layers`` layers on a
@@ -3691,17 +4059,30 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
     SHARD_BF16_RTOL of the single-device loss, exact launches of each LM
     kernel (per data group and remat forward: one, or one per model shard
     where attention is head-local), ms and tokens/s a step, peak memory
-    and the collective log per step (kept in SHARDED).  Returns the config
-    a launch runs at (heads per shard), the batch per launch and the
+    and the collective log per step (kept in SHARDED).  With ``workdir``,
+    the sharded checkpoint too: its float32 gate
+    (:func:`sharded_resume_check`), a save after step SHARD_CKPT_STEP
+    under ``workdir`` between the timed steps, and after them the restore
+    and the resumed step (:func:`sharded_resume`).  Returns the config a
+    launch runs at (heads per shard), the batch per launch and the
     launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
     from repro_torch.config import TrainConfig
+    from repro_torch.distributed import spmd
     from repro_torch.models import transformer
+    from repro_torch.train import checkpoint as ckpt
 
     shape = shape or SHARD_MESHES[cfg.name]
     m = shape[1]
     d = data_groups(cfg, shape)
     sharded_check(cfg, shape)
     torch.cuda.empty_cache()
+    if workdir is not None:
+        sharded_resume_check(cfg, shape, workdir, fa_kernel, ssd_kernel)
+        torch.cuda.empty_cache()
 
     cfg8 = dataclasses.replace(cfg, num_layers=layers)
     tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=d * SHARD_BATCH,
@@ -3741,6 +4122,25 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
         ev.record()
         (starts if metrics is None else ends).append(ev)
 
+    saved = {}
+
+    def on_state(i, p, o):
+        """Save after step SHARD_CKPT_STEP, between the timed steps; the
+        host gather alone is timed first (its copies are then dropped)."""
+        if i != SHARD_CKPT_STEP - 1:
+            return
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = [spmd.gather(x, "cpu") for x in tree.leaves((p, o))]
+        saved["gather_s"] = time.perf_counter() - t0
+        del host
+        t0 = time.perf_counter()
+        saved["path"] = ckpt.save_checkpoint(saved["dir"], i + 1, (p, o))
+        saved["save_s"] = time.perf_counter() - t0
+        saved["same"], saved["n"] = equal_to_file((p, o), saved["path"])
+
+    if workdir is not None:
+        saved["dir"] = tempfile.mkdtemp(prefix="shard_ckpt_", dir=workdir)
     mesh = shard_mesh(shape)
     p, o = shard_state(cfg8, tcfg, mesh, params)
     del params
@@ -3749,12 +4149,12 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     p, o, metrics = sharded_steps(cfg8, tcfg, mesh, p, o, batches, loss_fn,
-                                  on_step)
+                                  on_step,
+                                  on_state if workdir is not None else None)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = counted_launches(fa_kernel, ssd_kernel, want, "mma",
                                 f"main path ({SHARD_STEPS} sharded steps)")
-    del p, o
     ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
     losses = [float(x["loss"]) for x in metrics]
     for i, (x, t) in enumerate(zip(metrics, ms)):
@@ -3784,6 +4184,13 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
     SHARDED[cfg.name, cfg.parallel_policy, cfg.seq_parallel] = {
         "ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3, "peak": peak,
         "log": metrics[0]["collectives"]}
+    if workdir is not None:
+        try:
+            sharded_resume(cfg8, tcfg, mesh, (p, o), saved, batches,
+                           loss_fn, losses)
+        finally:
+            shutil.rmtree(saved["dir"], ignore_errors=True)
+    del p, o
     at = (dataclasses.replace(cfg8, name=f"{cfg.name} head-local",
                               num_heads=cfg.num_heads // m,
                               num_kv_heads=cfg.num_kv_heads // m)
@@ -4336,17 +4743,21 @@ def main() -> int:
     phase("batch-sharded path: stacked64 on a batch axis")
     paths["batch_sharded"] = batch_sharded_path(lqt_kernel, lqt_scan,
                                                 cells["estimation"])
-    del cells
     torch.cuda.empty_cache()
     log(f"sharded phases: {time.perf_counter() - t0:.1f} s")
+    phase("kernel combine in user scans: scan_combine_fn")
+    user_scans = user_scan_path(lqt_kernel, cells["estimation"])
+    del cells
+    torch.cuda.empty_cache()
 
     phase("lqt_scan timing at the estimation paths' scans")
     kernels = [scan_timing(g, lqt_scan, lqt_ref, paths)]
     torch.cuda.empty_cache()
-    phase("lqt_combine timing at the per-level scan's launch shapes")
+    phase("lqt_combine timing at the user scans' and the per-level "
+          "scan's launch shapes")
     kernels.append(combine_timing(
         g, lqt_kernel, lqt_ref,
-        {k: paths[k] for k in ("estimation", "nonlinear")}))
+        {k: paths[k] for k in ("estimation", "nonlinear")} | user_scans))
     torch.cuda.empty_cache()
 
     phase(f"serving path: {LM_ARCH}, bfloat16, full width")
@@ -4386,7 +4797,8 @@ def main() -> int:
           f"{' x '.join(map(str, SHARD_MESHES[LM_ARCH]))} (data, model) "
           f"mesh of cuda:0")
     t0 = time.perf_counter()
-    hymba_sharded = sharded_training_path(cfg, fa_kernel, ssd_kernel)
+    hymba_sharded = sharded_training_path(cfg, fa_kernel, ssd_kernel,
+                                          workdir=ROOT / "build")
     torch.cuda.empty_cache()
     log(f"sharded training phase ({LM_ARCH}): "
         f"{time.perf_counter() - t0:.1f} s")

@@ -10,6 +10,7 @@ family for CPU tests); both are registered with
 from repro_torch.config import register_config
 
 from . import (
+    coordinated_turn,
     granite_moe_3b,
     h2o_danube_1_8b,
     hubert_xlarge,
@@ -20,6 +21,7 @@ from . import (
     qwen3_4b,
     smollm_135m,
     starcoder2_15b,
+    wiener_velocity,
 )
 
 ARCHS = (

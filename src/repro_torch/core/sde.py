@@ -29,6 +29,7 @@ from repro_torch.linearize.taylor import taylor_linearize_grid
 from .combine import _mv, _solve_vec
 from .types import GridLQT, Tensor
 
+Array = Tensor
 Coef = Union[Tensor, Callable[[Tensor], Tensor]]
 
 # Information-form prior override (S0, v0): the initial boundary enters the

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import math
 import threading
 from typing import Optional, Sequence, Tuple
@@ -354,22 +355,41 @@ def _concat(outs: list, home: torch.device):
 
 
 def shard_over_batch(fn, mesh: Mesh, batch_axis: str,
-                     in_axes: Sequence[Optional[int]]):
+                     arg_batched: Sequence):
     """Wrap ``fn`` so that its record axis spreads over
     ``mesh.shape[batch_axis]`` devices.
 
-    ``in_axes[i]`` is the dim of positional argument ``i`` that carries
-    the records (``None``: shared by every shard; a tuple argument's
-    tensors share its entry; other values pass as they are).  Shard ``j``
-    takes the ``j``-th equal slice of each record dim, moves its tensors
-    to the ``j``-th device along ``batch_axis`` and runs
-    ``fn(*args, mesh=sub)`` there with that device current, ``sub`` being
-    the sub-mesh at index ``j`` of ``batch_axis`` (so a time-sharded
-    solver inside runs on that column of a 2-D mesh).  The results are
-    joined along dim 0 on the device of the first record-carrying
-    argument.  The counterpart of the reference's ``shard_map`` over the
-    batch axis, and of ``core.pscan.sharded_scan`` over time.
+    ``arg_batched[i]`` says which dim of positional argument ``i`` carries
+    the records, in either of two forms: the reference's booleans
+    (``True``: dim 0, ``False``: shared by every shard), or an int dim or
+    ``None`` (shared) per argument; a tuple argument's tensors share its
+    entry, other values pass as they are.  Shard ``j`` takes the ``j``-th
+    equal slice of each record dim, moves its tensors to the ``j``-th
+    device along ``batch_axis`` and runs ``fn(*args, mesh=sub)`` there
+    with that device current, ``sub`` being the sub-mesh at index ``j`` of
+    ``batch_axis`` (so a time-sharded solver inside runs on that column of
+    a 2-D mesh; a ``fn`` without a ``mesh`` keyword, as the reference's
+    are, gets ``fn(*args)``).  The results are joined along dim 0 on the
+    device of the first record-carrying argument.  The counterpart of the
+    reference's ``shard_map`` over the batch axis, and of
+    ``core.pscan.sharded_scan`` over time.
     """
+    flags = [isinstance(b, bool) for b in arg_batched]
+    if all(flags):
+        in_axes = [0 if b else None for b in arg_batched]
+    elif any(flags):
+        raise TypeError(
+            f"arg_batched {list(arg_batched)!r} mixes booleans with dims: "
+            f"give booleans (True: the records on dim 0, False: shared) or "
+            f"an int dim or None per argument")
+    else:
+        in_axes = list(arg_batched)
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        params = ()
+    takes_mesh = any(p.name == "mesh" or p.kind is p.VAR_KEYWORD
+                     for p in params)
     devices = mesh.axis_devices(batch_axis)
     n = len(devices)
 
@@ -383,8 +403,9 @@ def shard_over_batch(fn, mesh: Mesh, batch_axis: str,
         outs = []
         for j, dev in enumerate(devices):
             part = [_split(a, ax, j, n, dev) for a, ax in zip(args, in_axes)]
+            kw = {"mesh": mesh.select(batch_axis, j)} if takes_mesh else {}
             with device_scope(dev):
-                outs.append(fn(*part, mesh=mesh.select(batch_axis, j)))
+                outs.append(fn(*part, **kw))
         return _concat(outs, batched[0][0].device)
 
     return sharded

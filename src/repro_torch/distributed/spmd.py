@@ -292,13 +292,13 @@ def assemble(pieces: Sequence, want: tuple, device,
             continue
         src = t[tuple(slice(lo - a.start, hi - a.start)
                       for (lo, hi), a in zip(inter, sl))]
-        src = src.to(device=device, dtype=dtype or t.dtype)
-        if [hi - lo for lo, hi in inter] == shape:
-            return src.clone(memory_format=torch.contiguous_format)
+        if [hi - lo for lo, hi in inter] == shape:    # one copy, no more
+            return src.to(device=device, dtype=dtype or t.dtype, copy=True,
+                          memory_format=torch.contiguous_format)
         if out is None:
             out = torch.empty(shape, dtype=dtype or t.dtype, device=device)
         out[tuple(slice(lo - w.start, hi - w.start)
-                  for (lo, hi), w in zip(inter, want))] = src
+                  for (lo, hi), w in zip(inter, want))].copy_(src)
     if out is None:
         raise ValueError(f"no piece covers {want}")
     return out
@@ -347,7 +347,8 @@ def _put(x, sh: NamedSharding) -> ShardedTensor:
             value = assemble(x.pieces(prefer=positions[0], want=want), want,
                              dev)
         else:
-            value = x[want].to(dev, copy=True).contiguous()
+            value = x[want].to(dev, copy=True,
+                               memory_format=torch.contiguous_format)
         _copies(value, positions, sh.mesh, shards)
     if isinstance(x, PartialSum):
         data = Layout(sh.mesh).data_axes
@@ -370,7 +371,9 @@ def device_put(t, shardings):
 
 
 def gather(x: ShardedTensor, device) -> torch.Tensor:
-    """The global tensor of ``x`` on ``device``."""
+    """The global tensor of ``x`` on ``device``: one copy of each distinct
+    slice, from its first holder in mesh order, into one tensor there (to
+    ``"cpu"``: no device holds more than its own shards)."""
     return assemble(x.pieces(), tuple(slice(0, n) for n in x.shape), device)
 
 

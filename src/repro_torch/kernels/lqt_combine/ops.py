@@ -2,7 +2,10 @@
 
 ``lqt_combine_batched`` takes the natural ``(B, nx, nx)``/``(B, nx)``
 layout, re-lays it out lane-major (batch last), runs the pairwise kernel
-(``kernel.py``) and restores the layout.
+(``kernel.py``) and restores the layout.  ``scan_combine_fn`` wraps it as
+the combine of :mod:`repro_torch.core.pscan`'s scans (``parallel_rts(...,
+combine_fn=...)``, ``parallel_two_filter``, ``sharded_scan``): one launch
+per tree level, and one per carry combine and fix-up of a sharded scan.
 
 ``kernel_prefix_scan`` / ``kernel_suffix_scan`` run a whole scan in ONE
 launch of the scan kernel (``scan.py``), every tree level and every record
@@ -109,3 +112,25 @@ def kernel_suffix_scan(elems: LQTElement, *, block_size: int = 128,
     the operands swapped, done by the kernel's index arithmetic, so
     non-commutativity is preserved."""
     return _scan(elems, True, block_size, precision)
+
+
+def scan_combine_fn(*, block_size: int = 128):
+    """Combine callable for :mod:`repro_torch.core.pscan` scans, backed by
+    the pairwise kernel (:func:`lqt_combine_batched`; on CPU tensors its
+    plain version), and broadcast-compatible: an operand of lower rank (a
+    carried single element ``(nx, nx)``) is expanded to the other's
+    shape, and two single elements combine as a batch of one."""
+
+    def fn(a: LQTElement, b: LQTElement) -> LQTElement:
+        if a.A.dim() < b.A.dim():
+            a = LQTElement(*(x.expand(y.shape) for x, y in zip(a, b)))
+        elif b.A.dim() < a.A.dim():
+            b = LQTElement(*(y.expand(x.shape) for x, y in zip(a, b)))
+        if a.A.dim() == 2:
+            out = lqt_combine_batched(LQTElement(*(x[None] for x in a)),
+                                      LQTElement(*(x[None] for x in b)),
+                                      block_size=block_size)
+            return LQTElement(*(x[0] for x in out))
+        return lqt_combine_batched(a, b, block_size=block_size)
+
+    return fn

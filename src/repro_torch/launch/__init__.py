@@ -1,1 +1,2 @@
 """Command-line entry points."""
+from . import mesh, steps

@@ -24,6 +24,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+Array = torch.Tensor
+
 
 def vmap_points(fn: Callable, *args: torch.Tensor):
     """``fn`` over every grid point: each ``args[i]`` has the leading

@@ -1,6 +1,12 @@
-"""LM model stack (the parts ported so far: attention, SSM, hybrid)."""
-from . import attention, layers, ssm, transformer
-from .transformer import decode_step, init, init_caches, prefill
+"""LM model zoo: one generic stack covering every registered
+architecture."""
+from . import attention, layers, moe, ssm, transformer
+from .transformer import (
+    axes, decode_step, init, init_caches, prefill, shapes, train_loss,
+)
 
-__all__ = ["attention", "layers", "ssm", "transformer", "decode_step",
-           "init", "init_caches", "prefill"]
+__all__ = [
+    "attention", "layers", "moe", "ssm", "transformer",
+    "axes", "decode_step", "init", "init_caches", "prefill", "shapes",
+    "train_loss",
+]

@@ -19,7 +19,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch import tree
+from repro_torch import tree as tree_util
 from repro_torch.config import TrainConfig
 from repro_torch.distributed.sharding import map_axes
 
@@ -33,12 +33,14 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params) -> AdamWState:
     f32 = torch.float32
-    leaf = tree.leaves(params)[0]
+    leaf = tree_util.leaves(params)[0]
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=leaf.device),
-        m=tree.tree_map(lambda p: torch.zeros_like(p, dtype=f32), params),
-        v=tree.tree_map(lambda p: torch.zeros_like(p, dtype=f32), params),
-        master=tree.tree_map(lambda p: p.to(f32, copy=True), params),
+        m=tree_util.tree_map(lambda p: torch.zeros_like(p, dtype=f32),
+                             params),
+        v=tree_util.tree_map(lambda p: torch.zeros_like(p, dtype=f32),
+                             params),
+        master=tree_util.tree_map(lambda p: p.to(f32, copy=True), params),
     )
 
 
@@ -57,10 +59,10 @@ def cosine_schedule(cfg: TrainConfig) -> Callable:
     return lr
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(tree) -> torch.Tensor:
     """The l2 norm of all leaves together, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.leaves(grads)))
+                          for g in tree_util.leaves(tree)))
 
 
 def adamw_update(grads, state: AdamWState, cfg: TrainConfig,
@@ -73,11 +75,11 @@ def adamw_update(grads, state: AdamWState, cfg: TrainConfig,
     gnorm = global_norm(grads)
     step = state.step + 1
     lr = schedule(state.step)
-    adamw_apply(tree.leaves(grads), tree.leaves(state.m),
-                tree.leaves(state.v), tree.leaves(state.master), gnorm, step,
-                lr, cfg)
-    new_params = tree.tree_map(lambda x: x.to(compute_dtype, copy=True),
-                               state.master)
+    adamw_apply(tree_util.leaves(grads), tree_util.leaves(state.m),
+                tree_util.leaves(state.v), tree_util.leaves(state.master),
+                gnorm, step, lr, cfg)
+    new_params = tree_util.tree_map(
+        lambda x: x.to(compute_dtype, copy=True), state.master)
     return new_params, AdamWState(step, state.m, state.v, state.master), {
         "grad_norm": gnorm, "lr": lr}
 

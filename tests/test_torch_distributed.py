@@ -666,6 +666,43 @@ def test_shard_over_batch_splits_and_joins():
             1, a, torch.ones(1), (torch.arange(4.0), None))
 
 
+def test_shard_over_batch_takes_the_reference_booleans():
+    """The reference's call form (``arg_batched=[True, False]``: the first
+    argument split on dim 0, the second shared; a ``fn`` without a
+    ``mesh`` keyword): the same outputs as the ``[0, None]`` form and as
+    the reference's ``shard_over_batch`` (its ``shard_map`` over the batch
+    axis, on the one device of this process); a mix of booleans and dims
+    raises a TypeError that names both forms."""
+    from repro.distributed.sharding import shard_over_batch as j_sob
+
+    rng = np.random.default_rng(5)
+    a, w = rng.standard_normal((8, 3)), rng.standard_normal((3, 2))
+    mesh = cpu_mesh(batch=4)
+    seen = []
+
+    def fn(x, y):
+        seen.append(tuple(x.shape))
+        return x @ y, (x.sum(-1), y)
+
+    got = shard_over_batch(fn, mesh, "data", [True, False])(
+        torch.from_numpy(a), torch.from_numpy(w))
+    assert seen == [(2, 3)] * 4
+    dims = shard_over_batch(lambda x, y, *, mesh: fn(x, y), mesh, "data",
+                            [0, None])(torch.from_numpy(a),
+                                       torch.from_numpy(w))
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("rows",))
+    want = j_sob(lambda x, y: x @ y, jmesh, "rows", [True, False])(
+        jnp.asarray(a), jnp.asarray(w))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=1e-12,
+                               atol=1e-12)
+    assert torch.equal(got[0], dims[0]) and torch.equal(got[1][0],
+                                                        dims[1][0])
+    # every output joins over the shards, as out_specs=P(batch) joins them
+    assert got[1][1].shape == (12, 2)
+    with pytest.raises(TypeError, match="booleans .* int dim or None"):
+        shard_over_batch(fn, mesh, "data", [True, None])
+
+
 # ---------------------------------------------------------------------------
 # the engines with a mesh
 # ---------------------------------------------------------------------------

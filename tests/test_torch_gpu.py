@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA card: the LM kernels on the card
 (also under autograd, and a training step through them; attention at head
 size 80), the MoE layer and an MoE model's gradients,
-the whole-scan ``lqt_scan`` kernel against its plain scan, and the
+the whole-scan ``lqt_scan`` kernel against its plain scan, the pairwise
+kernel as ``scan_combine_fn``, a sharded checkpoint restored across mesh
+shapes on a repeated card, and the
 nonlinear estimation paths (the iterated Taylor and sigma-point
 smoothers), the estimation serving engines (``TrajectoryEngine``,
 ``StreamingEngine``) and the record-axis split over a mesh through it.
@@ -741,3 +743,89 @@ def test_pipeline_forward_on_repeated_card_matches_stack(card):
                             for h in x])
     assert got.device.type == "cuda" and got.dtype == torch.bfloat16
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_scan_combine_fn_on_card_launches_the_pairwise_kernel(card):
+    """``scan_combine_fn()`` in the core prefix scan on the card: one
+    pairwise launch per combine of the scan's tree (counted by running the
+    tree with a counting combine), and a carried single element expanded
+    in both orders, within 1e-8 of the plain combine (the reference's
+    kernel-path bound)."""
+    from repro_torch.core.combine import lqt_combine
+    from repro_torch.core.pscan import associative_scan, prefix_scan
+    from repro_torch.kernels.lqt_combine import scan_combine_fn
+
+    nx, n = 4, 32
+
+    def r(*s):
+        return torch.randn(*s, generator=card, device="cuda",
+                           dtype=torch.float64)
+
+    def psd(*lead):
+        A = r(*lead, nx, nx)
+        return A @ A.transpose(-1, -2) / nx + 0.1 * torch.eye(
+            nx, device="cuda", dtype=torch.float64)
+
+    e = LQTElement(r(n, nx, nx) * 0.6, r(n, nx), psd(n), r(n, nx), psd(n))
+    tree_combines = []
+    associative_scan(lambda a, b: tree_combines.append(1) or a,
+                     (torch.zeros(n),))
+    before = lqt_kernel.launch_count()
+    got = prefix_scan(scan_combine_fn(), e)
+    torch.cuda.synchronize()
+    assert lqt_kernel.launch_count() == before + len(tree_combines)
+    want = prefix_scan(lqt_combine, e)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-8)
+    one = LQTElement(*(x[0] for x in e))
+    rest = LQTElement(*(x[1:] for x in e))
+    for a, b in ((one, rest), (rest, one)):
+        wide = [LQTElement(*(x.expand(y.shape) for x, y in zip(u, v)))
+                if u.A.dim() == 2 else u for u, v in ((a, b), (b, a))]
+        for g, w in zip(scan_combine_fn()(a, b), lqt_combine(*wide)):
+            torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.gpu
+def test_sharded_checkpoint_on_repeated_card(card, tmp_path):
+    """A sharded training state on a 2 x 2 mesh of cuda:0 saved and
+    restored onto a (4, 1) mesh of cuda:0 and onto the card alone: every
+    shard its slice of the saved global tensor, bit for bit, on the
+    card."""
+    import numpy as np_
+
+    from repro_torch import tree
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed import Mesh, mesh_context, spmd
+    from repro_torch.train import adamw_init
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import make_shardings
+
+    cfg = dataclasses.replace(get_config("smollm-135m-smoke"),
+                              dtype="float32")
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1)
+    params = transformer.init(cfg, card)
+    state = (params, adamw_init(params))
+
+    def shardings(shape):
+        mesh = Mesh(np_.array(["cuda:0"] * 4, dtype=object).reshape(shape),
+                    ("data", "model"))
+        with mesh_context(mesh):
+            return make_shardings(cfg, tcfg, mesh)
+
+    sharded = spmd.device_put(state, shardings((2, 2)))
+    path = ckpt.save_checkpoint(str(tmp_path), 3, sharded)
+    saved = torch.load(path, weights_only=True)["leaves"]
+    for x, want in zip(tree.leaves(state), saved):
+        assert torch.equal(x.cpu(), want)
+    step, moved = ckpt.restore_checkpoint(path, state, shardings((4, 1)))
+    assert step == 3
+    for x, want in zip(tree.leaves(moved), saved):
+        for pos in np_.ndindex(x.shards.shape):
+            shard = x.shards[pos]
+            assert shard.device.type == "cuda"
+            assert torch.equal(shard.cpu(), want[x.index(pos)])
+    _, plain = ckpt.restore_checkpoint(path, state)
+    for x, want in zip(tree.leaves(plain), saved):
+        assert x.device.type == "cuda" and torch.equal(x.cpu(), want)

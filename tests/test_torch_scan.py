@@ -270,6 +270,156 @@ def test_no_build_at_import_and_ptxas_parse():
         "spill_loads": 176, "registers": 255}]
 
 
+# ---------------------------------------------------------------------------
+# scan_combine_fn: the pairwise kernel as a user scan's combine
+# ---------------------------------------------------------------------------
+
+# the reference's kernel-path bound (tests/test_kernels.py:
+# test_kernel_backed_scan_matches_core_scan)
+TOL_KERNEL = dict(rtol=1e-8, atol=1e-8)
+
+
+def _ref_case_elems():
+    """``tests/test_kernels.py``'s case: 32 elements, nx = 4, float64,
+    drawn as its ``_rand_elems`` draws them."""
+    rng = np.random.default_rng(0)
+    B, nx = 32, 4
+
+    def psd():
+        A = rng.standard_normal((B, nx, nx))
+        return np.einsum("bij,bkj->bik", A, A) / nx + 0.1 * np.eye(nx)
+
+    return (rng.standard_normal((B, nx, nx)) * 0.6,
+            rng.standard_normal((B, nx)), psd(),
+            rng.standard_normal((B, nx)), psd())
+
+
+def test_scan_combine_fn_matches_reference_test_case():
+    """The reference's own case (``prefix_scan(scan_combine_fn(...))``
+    against the core combine): the port's function through its core
+    ``prefix_scan`` against the reference's ``scan_combine_fn`` in
+    interpret mode and against the jnp combine, at 1e-8; on the CPU it
+    launches nothing."""
+    from repro.core import prefix_scan as j_prefix
+    from repro.kernels.lqt_combine import scan_combine_fn as j_scf
+    from repro_torch.core.pscan import prefix_scan
+    from repro_torch.kernels.lqt_combine import scan_combine_fn
+
+    arrs = _ref_case_elems()
+    jel = JElem(*map(jnp.asarray, arrs))
+    launches = tkernel.launch_count()
+    got = prefix_scan(scan_combine_fn(), _port(arrs))
+    assert tkernel.launch_count() == launches
+    assert type(got) is LQTElement
+    for want in (j_prefix(j_scf(interpret=True, block_b=8), jel),
+                 j_prefix(jcombine, jel)):
+        _close(got, want, **TOL_KERNEL)
+
+
+@pytest.mark.parametrize("order", ["single-first", "batch-first"])
+def test_scan_combine_fn_promotes_a_single_element(order):
+    """A carried single element (2-D operands) against a batch (3-D), in
+    both orders, and two single elements: the reference's function's
+    results, and the core combine on broadcast operands."""
+    from repro.kernels.lqt_combine import scan_combine_fn as j_scf
+    from repro_torch.core.combine import lqt_combine
+    from repro_torch.kernels.lqt_combine import scan_combine_fn
+
+    arrs = _elems(21, 4, 3, records=())
+    one = [a[0] for a in arrs]
+    batch = [a[1:] for a in arrs]
+    pair = (one, batch) if order == "single-first" else (batch, one)
+    port = [LQTElement(*map(torch.from_numpy, x)) for x in pair]
+    got = scan_combine_fn()(*port)
+    assert got.A.shape == (3, 3, 3)
+    want = j_scf(interpret=True, block_b=8)(
+        *(JElem(*map(jnp.asarray, x)) for x in pair))
+    _close(got, want, **TOL_KERNEL)
+    wide = [LQTElement(*(a.expand(b.shape) for a, b in zip(x, port[1 - k])))
+            if x.A.dim() == 2 else x for k, x in enumerate(port)]
+    _close(got, lqt_combine(*wide), **TOL_KERNEL)
+    two = scan_combine_fn()(port[0 if order == "single-first" else 1],
+                            LQTElement(*(torch.from_numpy(a[2])
+                                         for a in arrs)))
+    assert two.A.shape == (3, 3)
+    _close(two, jcombine(JElem(*map(jnp.asarray, one)),
+                         JElem(*(jnp.asarray(a[2]) for a in arrs))),
+           **TOL_KERNEL)
+
+
+def _wiener_grids(n_steps, nsub):
+    """The Wiener velocity problem on ``n_steps`` substeps for both
+    packages: the reference's grid and the port's, from the same
+    seeded measurements."""
+    from helpers import wiener_velocity
+    from repro.core import sde as jsde
+    from repro_torch.convert import linear_sde_from_numpy
+    from repro_torch.core import sde as tsde
+
+    model = wiener_velocity()
+    ts = jsde.time_grid(0.0, n_steps / 20.0, n_steps)
+    y = 5.0 + np.random.default_rng(4).standard_normal((n_steps, 2))
+    jg = jsde.grid_lqt_from_linear(model, ts, jnp.asarray(y))
+    tmodel = linear_sde_from_numpy({k: np.asarray(getattr(model, k)) for k in
+                                    ("F", "c", "H", "r", "Q", "R", "m0",
+                                     "P0")})
+    tg = tsde.grid_lqt_from_linear(tmodel, torch.tensor(np.asarray(ts)),
+                                   torch.from_numpy(y))
+    return jg, tg
+
+
+def test_scan_combine_fn_in_parallel_smoothers_and_sharded_scan():
+    """``parallel_rts(..., combine_fn=scan_combine_fn())``,
+    ``parallel_two_filter(..., combine_fn=...)`` and a backward pass whose
+    suffix scan is ``sharded_scan(scan_combine_fn(), ...)`` on a 4 x cpu
+    time mesh (17 elements: a distributed head of 16 and a stitched tail),
+    each against the reference's smoother with its own combine, at the
+    reference's kernel-path bounds (``tests/test_parallel_kernel.py``:
+    max|dx| < 1e-8, S and v rtol 1e-9 / atol 1e-8); the sharded scan also
+    against the plain suffix scan of the same elements."""
+    from repro.core import parallel as jparallel
+    from repro_torch.core import parallel as tparallel
+    from repro_torch.core.combine import lqt_combine
+    from repro_torch.core.elements import (
+        discrete_block_elements,
+        terminal_element,
+    )
+    from repro_torch.core.pscan import sharded_scan, suffix_scan
+    from repro_torch.distributed import MeshSpec
+    from repro_torch.kernels.lqt_combine import scan_combine_fn
+
+    nsub = 4
+    jg, tg = _wiener_grids(64, nsub)
+    mesh = MeshSpec(time=4).build(["cpu"] * 4)
+
+    def sharded(e):
+        return sharded_scan(scan_combine_fn(), e, mesh=mesh,
+                            axis_name="time", reverse=True)
+
+    def held(got, want):
+        assert float(np.abs(got.x.numpy() - np.asarray(want.x)).max()) < 1e-8
+        for f in ("S", "v"):
+            np.testing.assert_allclose(getattr(got, f).numpy(),
+                                       np.asarray(getattr(want, f)),
+                                       rtol=1e-9, atol=1e-8)
+
+    want = jax.jit(functools.partial(jparallel.parallel_rts, nsub=nsub,
+                                     mode="discrete"))(jg)
+    held(tparallel.parallel_rts(tg, nsub, "discrete",
+                                combine_fn=scan_combine_fn()), want)
+    held(tparallel.parallel_rts(tg, nsub, "discrete",
+                                suffix_scan_fn=sharded), want)
+    want_tf = jax.jit(functools.partial(jparallel.parallel_two_filter,
+                                        nsub=nsub, mode="discrete"))(jg)
+    held(tparallel.parallel_two_filter(tg, nsub, "discrete",
+                                       combine_fn=scan_combine_fn()),
+         want_tf)
+    blocks, _ = discrete_block_elements(tg, nsub)
+    elems = tparallel._append_elem(blocks, terminal_element(tg))
+    assert elems.A.shape[0] == 17
+    _close(sharded(elems), suffix_scan(lqt_combine, elems), **TOL_KERNEL)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _release_reference_executables():
     """Drop the JAX executables this module compiled once it ends: each
