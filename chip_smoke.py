@@ -149,6 +149,29 @@ Phases, each of which fails the run on any miss:
                  beside its plain version and bound, summed over the user
                  scans' launches (its row in the report) and over the
                  per-level scan's shapes of the estimation paths;
+3k. long grid -- (after 3i') the Wiener velocity model with a
+                 time-varying noise Q(t) = Q (1 + 0.5 sin t) (Q stays
+                 singular), float64: one record of 16384 blocks x nsub =
+                 10 (163840 intervals) and 64 stacked records of the
+                 estimation cell's grid (1.31 M points), both past the
+                 ~31000 4 x 4 matrices cuSOLVER's batched ``eigh`` takes
+                 in one call (probed at n = 2, 4, 8, 32;
+                 ``core.sde.EIGH_CHUNK`` must lie below it):
+                 ``simulate_linear`` on the card (the square roots of
+                 Q(t), their eigendecompositions in chunks of
+                 EIGH_CHUNK), ``parallel_kernel`` (one scan launch) against
+                 ``parallel_rts`` (1e-8), a finite ``om_cost_grid``, the
+                 chunked square roots against the same grid factored on
+                 the CPU (normwise 1e-12), and each grid factorisation's
+                 (eigh, pinv, cholesky, inv) ms at the chunk sizes of
+                 ``FACTOR_SWEEP``;
+3l. collector -- (after 5e'') with Python's cyclic garbage collector
+                 disabled: one Wiener single solve (a private executable
+                 cache) and one smollm-135m prefill plus decode at full
+                 width and depth; ``torch.cuda.memory_allocated()`` back
+                 to its value before them once every result is deleted,
+                 and no tensor among what ``gc.collect()`` then finds
+                 (``gc.DEBUG_SAVEALL``);
 4. serving    -- ``ServeEngine.generate`` on hymba-1.5b at full width in
                  bfloat16 (random weights from a seeded generator): 16
                  requests of 2048 prompt tokens and 32 new tokens in two
@@ -199,7 +222,8 @@ Phases, each of which fails the run on any miss:
                  tokens a data shard, zero1, 3 bf16 AdamW steps: finite
                  losses, the step-1 loss within 1e-2 of the single-device
                  loss, exact ``mma`` launches, ms and tokens/s a step, peak
-                 memory, the collective log (counts and bytes by kind);
+                 memory (and what is allocated when the peak is reset),
+                 the collective log (counts and bytes by kind);
                  first its float32 gate at 2 layers, 2 x 512 tokens, one
                  step against the single-device step at the reference
                  test's tolerances (loss, gradients, params outside
@@ -295,6 +319,8 @@ Phases, each of which fails the run on any miss:
                  power limit, and the final status line.
 
 It needs a CUDA card: without one it exits non-zero and prints no result.
+``--phases long-grid,sharded2x2,collector`` (any of them, in the order
+given) runs only those phases after the build, and prints no report.
 It imports only the port, never the JAX reference package.
 """
 from __future__ import annotations
@@ -304,6 +330,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import os
 import re
@@ -336,9 +363,10 @@ NL_BLOCKS, NL_ITERS, NL_MODE = 512, 5, "euler"
 # RTS at the reference's own bounds (tests/test_nonlinear.py:
 # test_euler_mode_ieks, test_two_filter_ieks)
 NL_KERNEL_TOL, NL_SEQ_TOL, NL_TF_TOL = 1e-8, 5e-2, 1e-5
-# sequential_rts's timed runs a problem (12-20 s each; the script's time
-# limit leaves room for 3 beside the sharded serving and dry-run phases)
-NL_SEQ_RUNS = 3
+# sequential_rts's timed runs a problem: its timed gate solve alone (12-25
+# s each on the card's host; with the long-grid and collector phases the
+# script's 1200 s limit leaves no room for more)
+NL_SEQ_RUNS = 1
 # ragged cell: record lengths drawn uniformly from these interval counts
 # (256 to 2048 blocks of nsub = 10), mostly not multiples of nsub
 RAGGED_LENGTHS = (2560, 20480)
@@ -487,6 +515,29 @@ DRYRUN_CELLS = (("hymba-1.5b", "decode_32k", ()),
                 ("smollm-135m", "train_4k", ()),
                 ("smollm-135m", "train_4k", ("parallel_policy=dp_only",)))
 DRYRUN_LIMIT_S = 90.0
+# long-grid cell: the Wiener velocity model with a time-varying noise
+# Q(t) = Q (1 + 0.5 sin t) (Q stays singular: eigh and pinv), float64, one
+# record of LONG_BLOCKS x NSUB intervals at the estimation cell's step
+# (past the ~31000 4 x 4 matrices cuSOLVER's batched eigh takes in one
+# call) and RECORDS stacked records of the estimation cell's grid; the
+# chunked square roots within LONG_SQRT_RTOL (normwise) of the CPU's, the
+# kernel path within 1e-8 of parallel_rts, and each grid factorisation
+# timed at the chunk sizes of FACTOR_SWEEP (None: the whole grid in one
+# call)
+LONG_BLOCKS = 16384
+LONG_SQRT_RTOL = 1e-12
+FACTOR_SWEEP = (8192, 16384, 32768, 65536, 131071, None)
+# the matrix sizes at which the largest batch cuSOLVER's batched eigh
+# accepts is probed (the port's state sizes are 1..8); EIGH_CHUNK must
+# stay within it at each
+EIGH_PROBE_N = (2, 4, 8, 32)
+# the collector phase: with Python's cyclic garbage collector disabled,
+# one Wiener single solve (a private executable cache) and one prefill
+# plus decode of COLLECT_ARCH at full width and depth (bf16, a wave of
+# COLLECT_BATCH x LM_PROMPT prompts, COLLECT_NEW new tokens): the card's
+# allocated bytes back to where they were once the results are deleted,
+# and no tensor among what the collector then finds
+COLLECT_ARCH, COLLECT_BATCH, COLLECT_NEW = "smollm-135m", 8, 4
 # the single-device serving phases' numbers, for the sharded ones
 SERVED = {}
 # the sharded training phases' step ms and collective logs, by cell
@@ -2569,6 +2620,250 @@ def user_scan_path(lqt_kernel, cell: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3k. time-varying Q on a long grid: the chunked grid factorisations
+# ---------------------------------------------------------------------------
+
+def factor_ms(fn, grid, chunk) -> str:
+    """``fn`` over the matrices of ``grid`` in calls of at most ``chunk``
+    matrices (None: the whole grid in one call): the median ms of 3 by
+    CUDA events after a warm-up, or what the solver says when it refuses
+    the batch (a measurement of its limit, not a gate)."""
+    flat = grid.reshape((-1,) + grid.shape[-2:])
+
+    def run():
+        return [fn(part) for part in flat.split(chunk or flat.shape[0])]
+
+    try:
+        run()
+    except RuntimeError as err:
+        return f"refused ({str(err).splitlines()[0][:96]})"
+    return f"{cuda_time_ms(run, 3):.3f}"
+
+
+def eigh_batch_limit(n: int, dtype) -> int:
+    """The largest batch of n x n matrices ``torch.linalg.eigh`` takes in
+    one call on the card (bisection up to 2**16; a refusal is the
+    solver's argument check, before any work)."""
+    def takes(batch: int) -> bool:
+        a = torch.eye(n, dtype=dtype, device="cuda").expand(batch, n, n)
+        try:
+            torch.linalg.eigh(a.contiguous())
+        except RuntimeError:
+            return False
+        return True
+
+    lo, hi = 1, 2 ** 16 + 1          # takes(lo); hi: past the probe
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    return lo
+
+
+def long_grid_path(lqt_kernel, lqt_scan) -> dict:
+    """The Wiener velocity model with Q(t) = Q (1 + 0.5 sin t), float64:
+    (a) one record of LONG_BLOCKS x NSUB intervals, (b) RECORDS stacked
+    records of N_BLOCKS x NSUB.  For each, ``simulate_linear`` on the card
+    (the chunked square roots of Q(t)), ``Estimator.solve`` with
+    ``parallel_kernel`` (one ``lqt_scan`` launch) and ``parallel_rts``
+    (within 1e-8, S and v at rtol 1e-9 / atol 1e-8), ``om_cost_grid``
+    (finite); the chunked square roots against the same Q grid factored
+    on the CPU (normwise within LONG_SQRT_RTOL); each grid factorisation's
+    ms at FACTOR_SWEEP's chunk sizes.  Returns the scans for the kernel's
+    report row."""
+    from repro_torch.configs.wiener_velocity import WienerVelocityConfig
+    from repro_torch.core import (
+        Estimator,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+        grid_lqt_from_linear,
+        om_cost_grid,
+        simulate_linear,
+        time_grid,
+    )
+    from repro_torch.core import sde
+
+    cfg = WienerVelocityConfig()
+    base = cfg.model(dtype=torch.float64, device="cuda")
+    Q0 = base.Q
+    model = dataclasses.replace(
+        base, Q=lambda t: Q0 * (1.0 + 0.5 * torch.sin(t)))
+    step = (cfg.tf - cfg.t0) / (N_BLOCKS * NSUB)
+    cells = {"single": (LONG_BLOCKS, 1),
+             f"stacked{RECORDS}": (N_BLOCKS, RECORDS)}
+    est_k = Estimator(model, method="parallel_kernel",
+                      options=KernelOptions(nsub=NSUB, mode="discrete"))
+    est_p = Estimator(model, method="parallel_rts",
+                      options=ParallelOptions(nsub=NSUB, mode="discrete"))
+    log(f"Wiener velocity with Q(t) = Q (1 + 0.5 sin t) (singular), "
+        f"float64, dt {step:.4e}; on {card()}")
+    t0 = time.perf_counter()
+    limits = {n: eigh_batch_limit(n, torch.float64) for n in EIGH_PROBE_N}
+    log(f"  the largest batch torch.linalg.eigh takes in one call, float64: "
+        + ", ".join(f"n={n} {b}" for n, b in limits.items())
+        + f" (probed up to {2 ** 16}; {time.perf_counter() - t0:.1f} s)")
+    short = {k: v for k, v in limits.items() if v < sde.EIGH_CHUNK}
+    if short:
+        raise AssertionError(f"EIGH_CHUNK = {sde.EIGH_CHUNK} is past the "
+                             f"batched eigh's limit at {short}")
+    launches = 0
+    for name, (blocks, R) in cells.items():
+        N = blocks * NSUB
+        ts = time_grid(cfg.t0, cfg.t0 + N * step, N, device="cuda")
+        tsr = ts if R == 1 else ts[:, None].expand(-1, R)
+        Qg = model._eval(model.Q, tsr[:-1])
+        Rg = (base.R * (1.0 + 0.25 * torch.cos(tsr[:-1]))[..., None, None]
+              ).contiguous()
+        t0 = time.perf_counter()
+        for label, fn, g in (("eigh of Q", torch.linalg.eigh, Qg),
+                             ("pinv of Q", torch.linalg.pinv, Qg),
+                             ("cholesky of R", torch.linalg.cholesky, Rg),
+                             ("inv of R", torch.linalg.inv, Rg)):
+            log(f"  {name}: {label}, {N * R} matrices, ms by chunk size "
+                f"(EIGH_CHUNK = {sde.EIGH_CHUNK}): "
+                + "; ".join(f"{c or 'whole grid'} {factor_ms(fn, g, c)}"
+                            for c in FACTOR_SWEEP))
+        log(f"  {name}: the sweep took {time.perf_counter() - t0:.1f} s")
+        gm = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, y = simulate_linear(model, tsr, gm)
+        torch.cuda.synchronize()
+        sim_s = time.perf_counter() - t0
+        problem = (Problem.single(model, ts, y) if R == 1 else
+                   Problem.stacked(model, ts, y.movedim(1, 0)))
+        log(f"  {name}: {N} intervals x {R} records ({N * R} grid "
+            f"points), simulate_linear {sim_s:.2f} s (wall)")
+        lqt_kernel.reset_launch_count()
+        lqt_scan.reset_launch_count()
+        sol, kernel_ms = timed_solve(est_k, problem)
+        torch.cuda.synchronize()
+        n_scan = lqt_scan.launch_count()
+        launches += n_scan
+        if n_scan != 1 or lqt_kernel.launch_count():
+            raise AssertionError(
+                f"{name}: expected 1 lqt_scan launch and no lqt_combine, "
+                f"counted {n_scan} and {lqt_kernel.launch_count()}")
+        ref, rts_ms = timed_solve(est_p, problem)
+        dx = float((sol.x - ref.x).abs().max())
+        ok = dx < 1e-8 and all(torch.allclose(
+            getattr(sol, f), getattr(ref, f), rtol=1e-9, atol=1e-8)
+            for f in ("S", "v"))
+        grid = grid_lqt_from_linear(model, tsr, y)
+        x = sol.x if R == 1 else sol.x.movedim(0, 1)        # (N+1, *R, nx)
+        t0 = time.perf_counter()
+        cost = om_cost_grid(grid, x)
+        torch.cuda.synchronize()
+        cost_ms = (time.perf_counter() - t0) * 1e3
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (sol.x, sol.S, sol.v, sol.cost, cost))
+        log(f"  {name}: parallel_kernel {kernel_ms:.1f} ms, parallel_rts "
+            f"{rts_ms:.1f} ms (first solves, CUDA events); max|dx| "
+            f"{dx:.3e} (tol 1e-8), S/v within rtol 1e-9 atol 1e-8: {ok}; "
+            f"om_cost_grid {cost_ms:.1f} ms (wall), cost "
+            f"{float(cost.sum()):.6e} (the solve's "
+            f"{float(sol.cost.sum()):.6e}), finite: {finite}")
+        if not (ok and finite):
+            raise AssertionError(f"{name}: the time-varying-Q solve failed "
+                                 f"its gates")
+        sqrt_ms = cuda_time_ms(lambda: sde._psd_sqrt(Qg), 3)
+        got = sde._psd_sqrt(Qg)
+        want = sde._psd_sqrt(Qg.cpu())
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        log(f"  {name}: _psd_sqrt (eigh in chunks of EIGH_CHUNK = "
+            f"{sde.EIGH_CHUNK}) {sqrt_ms:.3f} ms on the card; vs the CPU: "
+            f"normwise {rel:.3e} (tol {LONG_SQRT_RTOL:.0e})")
+        if not rel <= LONG_SQRT_RTOL:
+            raise AssertionError(f"{name}: chunked _psd_sqrt off the CPU's "
+                                 f"by {rel:.3e}")
+        del sol, ref, grid, x, cost, Qg, Rg, got, want, y, problem
+        torch.cuda.empty_cache()
+    return {"launches": launches, "nx": 4,
+            "scans": [(LONG_BLOCKS + 1, 1), (N_BLOCKS + 1, RECORDS)],
+            "shapes": (scan_lane_counts(LONG_BLOCKS + 1, 1)
+                       + scan_lane_counts(N_BLOCKS + 1, RECORDS)),
+            "pairwise_launches": 0}
+
+
+# ---------------------------------------------------------------------------
+# 3l. no tensor left to the garbage collector
+# ---------------------------------------------------------------------------
+
+def collector_path() -> None:
+    """With Python's cyclic garbage collector disabled for the phase: one
+    Wiener single solve (``parallel_kernel``, a private executable cache)
+    and one COLLECT_ARCH prefill plus decode (``ServeEngine.generate``,
+    full width and depth, bf16, seeded random weights made in the phase).
+    Once every result (solution, estimator, cache, weights, engine, the
+    generated requests) is deleted, ``torch.cuda.memory_allocated()`` is
+    back at its value before them, and ``gc.collect()`` under
+    ``gc.DEBUG_SAVEALL`` finds no tensor."""
+    import gc
+
+    from repro_torch.config import get_config
+    from repro_torch.configs.wiener_velocity import WienerVelocityConfig
+    from repro_torch.core import (
+        Estimator,
+        ExecutableCache,
+        KernelOptions,
+        Problem,
+        simulate_linear,
+        time_grid,
+    )
+    from repro_torch.models import transformer
+    from repro_torch.serving import Request, ServeEngine
+
+    wcfg = WienerVelocityConfig()
+    model = wcfg.model(dtype=torch.float64, device="cuda")
+    N = N_BLOCKS * NSUB
+    ts = time_grid(wcfg.t0, wcfg.tf, N, device="cuda")
+    _, y = simulate_linear(model, ts,
+                           torch.Generator(device="cuda").manual_seed(SEED))
+    cfg = get_config(COLLECT_ARCH)
+    reqs = lm_requests(cfg, Request, COLLECT_BATCH, COLLECT_NEW)
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        est = Estimator(model, method="parallel_kernel",
+                        options=KernelOptions(nsub=NSUB, mode="discrete"),
+                        cache=ExecutableCache())
+        sol = est.solve(Problem.single(model, ts, y))
+        params = transformer.init(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        engine = ServeEngine(cfg, params, batch=COLLECT_BATCH,
+                             max_len=LM_PROMPT + COLLECT_NEW)
+        done = engine.generate(reqs)
+        torch.cuda.synchronize()
+        during = torch.cuda.memory_allocated()
+        ok = bool(torch.isfinite(sol.x).all()) and all(
+            r.out.shape == (COLLECT_NEW,) for r in done)
+        del est, sol, params, engine, done
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        found = gc.collect()
+        tensors = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+        n_tensors = len(tensors)
+        del tensors
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    log(f"  gc disabled: a Wiener single solve and a {cfg.name} prefill of "
+        f"{COLLECT_BATCH} x {LM_PROMPT} plus {COLLECT_NEW} tokens; "
+        f"memory_allocated before {before} B, with the results {during} B, "
+        f"after deleting them {after} B (difference {after - before} B); "
+        f"gc.collect() then found {found} objects, {n_tensors} of them "
+        f"tensors")
+    if not (ok and after == before and n_tensors == 0):
+        raise AssertionError(
+            f"collector phase: outputs ok {ok}, {after - before} B still "
+            f"allocated, {n_tensors} tensors left to the collector")
+
+
+# ---------------------------------------------------------------------------
 # 3j. the scan kernel at the paths' scans; lqt_combine at the per-level shapes
 # ---------------------------------------------------------------------------
 
@@ -4148,6 +4443,7 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
     ssd_kernel.reset_launch_count()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    at_reset = torch.cuda.memory_allocated()
     p, o, metrics = sharded_steps(cfg8, tcfg, mesh, p, o, batches, loss_fn,
                                   on_step,
                                   on_state if workdir is not None else None)
@@ -4174,8 +4470,9 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
     step_ms = statistics.median(ms[1:])
     rel = abs(losses[0] - single) / abs(single)
     log(f"  steps 2..{SHARD_STEPS}: median {step_ms:.1f} ms, "
-        f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
-        f"{peak / 1e9:.2f} GB; step-1 loss sharded {losses[0]:.5f} vs "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; memory allocated at "
+        f"reset_peak_memory_stats() {at_reset / 1e9:.3f} GB, peak "
+        f"{peak / 1e9:.3f} GB; step-1 loss sharded {losses[0]:.5f} vs "
         f"single-device {single:.5f}: relative {rel:.3e} (bound "
         f"{SHARD_BF16_RTOL:.0e}); on {card()}")
     if not (np.isfinite(losses).all() and rel <= SHARD_BF16_RTOL):
@@ -4183,7 +4480,7 @@ def sharded_training_path(cfg, fa_kernel, ssd_kernel, shape=None,
                              f"{single}")
     SHARDED[cfg.name, cfg.parallel_policy, cfg.seq_parallel] = {
         "ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3, "peak": peak,
-        "log": metrics[0]["collectives"]}
+        "at_reset": at_reset, "log": metrics[0]["collectives"]}
     if workdir is not None:
         try:
             sharded_resume(cfg8, tcfg, mesh, (p, o), saved, batches,
@@ -4658,13 +4955,59 @@ def lm_kernel_timing(paths, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
     return rows
 
 
+# the phases ``--phases`` can run alone, after the build (for trying them
+# on the card; the script's own run takes no arguments and runs them all)
+SELECTABLE = ("long-grid", "collector", "sharded2x2")
+
+
+def selected_phases(argv) -> list | None:
+    """The phases named by ``--phases a,b`` in order, or None (all)."""
+    if not argv:
+        return None
+    names = argv[1].split(",") if len(argv) == 2 else []
+    if argv[0] != "--phases" or not names or not set(names) <= set(
+            SELECTABLE):
+        raise SystemExit(f"usage: chip_smoke.py [--phases "
+                         f"{','.join(SELECTABLE)}]")
+    return names
+
+
+def run_selected(names, lqt_kernel, lqt_scan, fa_kernel, ssd_kernel) -> int:
+    """Run the named phases alone; no report line."""
+    from repro_torch.config import get_config
+
+    for name in names:
+        if name == "long-grid":
+            phase("time-varying Q on a long grid")
+            long_grid_path(lqt_kernel, lqt_scan)
+        elif name == "collector":
+            phase("no tensor left to the collector")
+            collector_path()
+        else:
+            phase(f"sharded training path: {LM_ARCH}, {SHARD_LAYERS} layers "
+                  f"on a 2 x 2 (data, model) mesh of cuda:0")
+            sharded_training_path(get_config(LM_ARCH), fa_kernel, ssd_kernel,
+                                  workdir=ROOT / "build")
+        torch.cuda.empty_cache()
+    log(f"phases {', '.join(names)} passed (no report: run without "
+        f"arguments for the whole script)")
+    return 0
+
+
 def main() -> int:
+    phases = selected_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # torch imports torch._inductor (with torch._dynamo) lazily, at the
+    # first profiler or checkpoint call; the import runs torch.fx.wrap,
+    # which keeps its own frame, and so the whole calling stack with every
+    # tensor in it, in a reference cycle until the garbage collector runs.
+    # Imported here, the stack it keeps holds no tensor.
+    importlib.import_module("torch._inductor")
 
     from repro_torch import tree
     from repro_torch.config import get_config
@@ -4688,6 +5031,9 @@ def main() -> int:
                   for v in fa_kernel.VARIANTS},
                **{f"ssd_chunked {v}": (lambda v=v: ssd_kernel.build(v))
                   for v in ssd_kernel.VARIANTS}})
+    if phases is not None:
+        return run_selected(phases, lqt_kernel, lqt_scan, fa_kernel,
+                            ssd_kernel)
 
     phase("kernel vs plain version")
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -4749,6 +5095,12 @@ def main() -> int:
     user_scans = user_scan_path(lqt_kernel, cells["estimation"])
     del cells
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase(f"time-varying Q on a long grid: {LONG_BLOCKS} x {NSUB} and "
+          f"{RECORDS} x {N_BLOCKS} x {NSUB}")
+    paths["long_grid"] = long_grid_path(lqt_kernel, lqt_scan)
+    torch.cuda.empty_cache()
+    log(f"long-grid phase: {time.perf_counter() - t0:.1f} s")
 
     phase("lqt_scan timing at the estimation paths' scans")
     kernels = [scan_timing(g, lqt_scan, lqt_ref, paths)]
@@ -4903,6 +5255,12 @@ def main() -> int:
         dcfg, fa_kernel, ssd_kernel, DP_ONLY_MESH)
     torch.cuda.empty_cache()
     log(f"dp-only phases ({DP_ONLY_ARCH}): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase(f"no tensor left to the collector: a Wiener solve and a "
+          f"{COLLECT_ARCH} prefill plus decode with gc disabled")
+    collector_path()
+    torch.cuda.empty_cache()
+    log(f"collector phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name in ZOO:

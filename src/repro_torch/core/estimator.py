@@ -36,6 +36,7 @@ one), so each scan level is one batched operation -- one kernel launch for
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import functools
 import threading
@@ -783,7 +784,13 @@ class Estimator:
                     signature, _device_key(self.device))
 
         def build():
-            run = functools.partial(self._run, problem.kind, has, shards,
+            # the entry runs a copy of the estimator that holds no cache: an
+            # estimator and its private cache would form a reference cycle
+            # (estimator -> cache -> entry -> estimator), and its tensors
+            # would wait for the garbage collector
+            solver = copy.copy(self)
+            solver._cache = None
+            run = functools.partial(solver._run, problem.kind, has, shards,
                                     mesh)
             kernel = self.device.type == "cuda" and isinstance(
                 self._method_options(), KernelOptions)

@@ -36,6 +36,13 @@ Coef = Union[Tensor, Callable[[Tensor], Tensor]]
 # reversed LQT as terminal information S_T = S0, v_T = v0.
 Prior = Tuple[Tensor, Tensor]
 
+# cuSOLVER's batched eigh (cusolverDnXsyevBatched, CUDA 12.8, an H100)
+# refuses more than 23325 to 32016 matrices in one call (n = 32 down to 2),
+# so _psd_sqrt runs its eigendecompositions in chunks of at most this many;
+# chip_smoke.py probes the limit and holds the constant below it.
+# cholesky, inv and pinv take a grid of 1.31 M matrices whole.
+EIGH_CHUNK = 16384
+
 
 class _Model:
     """What the linear and nonlinear models share: sizes, dtype, device
@@ -241,10 +248,30 @@ def grid_lqt_from_nonlinear(
 
 
 def _psd_sqrt(Q: Tensor) -> Tensor:
-    """Square root of a (possibly singular) PSD matrix via eigh."""
-    w, V = torch.linalg.eigh(Q)
-    return (V * torch.sqrt(torch.clamp(w, min=0.0)).unsqueeze(-2)) \
-        @ V.transpose(-1, -2)
+    """Square root of a (possibly singular) PSD matrix via eigh, one
+    matrix at a time, over the leading dims in calls of at most
+    ``EIGH_CHUNK`` matrices.
+
+    Eigenvalues within round-off of zero (up to ``10 n eps`` of the
+    largest, the cutoff of :func:`om_cost_grid`'s pseudo-inverse) count as
+    zero: eigh returns a singular Q's null eigenvalues as round-off (~1e-15
+    of the largest), and their square roots would put ~1e-8 of the factor
+    into directions Q does not drive."""
+    flat = Q.reshape((-1,) + Q.shape[-2:])
+    w, V = (torch.cat(parts) for parts in zip(
+        *(torch.linalg.eigh(part) for part in flat.split(EIGH_CHUNK))))
+    cut = (10.0 * Q.shape[-1] * torch.finfo(Q.dtype).eps
+           * w.abs().amax(-1, keepdim=True))
+    w = torch.where(w > cut, w, torch.zeros_like(w))
+    return ((V * torch.sqrt(w).unsqueeze(-2)) @ V.mT).reshape(Q.shape)
+
+
+def _factor_once(item: Coef, grid: Tensor, factor) -> Tensor:
+    """``factor`` of a noise matrix on the grid: a constant one is factored
+    once and broadcast, a callable one on every grid point."""
+    if callable(item):
+        return factor(grid)
+    return factor(item).expand(grid.shape)
 
 
 def simulate_linear(model: LinearSDE, ts: Tensor,
@@ -263,11 +290,10 @@ def simulate_linear(model: LinearSDE, ts: Tensor,
                        torch.randn(lead + (model.nx,), **kw))
     eps = torch.randn((N,) + lead + (model.nx,), **kw)
     # the noise increments do not depend on the state: draw them in bulk.
-    # A constant Q / R is factored once (a batched factorisation over the
-    # whole grid can exceed the GPU solver's batch limits).
-    Qh = (_psd_sqrt(Q) if callable(model.Q)
-          else _psd_sqrt(model.Q).expand(Q.shape))
-    w = torch.sqrt(dt)[..., None] * _mv(Qh, eps)
+    # A constant Q / R is factored once; a time-varying Q's square roots
+    # run in chunks of EIGH_CHUNK (the GPU solver's batch limit).
+    w = torch.sqrt(dt)[..., None] * _mv(_factor_once(model.Q, Q, _psd_sqrt),
+                                        eps)
     dtv = dt[..., None]
     xs = [x]
     for k in range(N):
@@ -276,19 +302,9 @@ def simulate_linear(model: LinearSDE, ts: Tensor,
     xs = torch.stack(xs, dim=0)
     noise = torch.randn(H.shape[:-1], **kw)
     # measurement for interval k uses the reversed-left point x_{k+1}
-    Rch = (torch.linalg.cholesky(R) if callable(model.R)
-           else torch.linalg.cholesky(model.R).expand(R.shape))
+    Rch = _factor_once(model.R, R, torch.linalg.cholesky)
     y = _mv(H, xs[1:]) + r + _mv(Rch, noise) / torch.sqrt(dtv)
     return xs, y
-
-
-def _factor_once(item: Coef, grid: Tensor, factor) -> Tensor:
-    """``factor`` of a noise matrix on the grid: a constant one is factored
-    once and broadcast (a batched factorisation over the whole grid can
-    exceed the GPU solver's batch limits)."""
-    if callable(item):
-        return factor(grid)
-    return factor(item).expand(grid.shape)
 
 
 def simulate_nonlinear(model: NonlinearSDE, ts: Tensor,

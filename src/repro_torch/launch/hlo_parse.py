@@ -22,7 +22,6 @@ condition's bound constant (scan trip counts are compile-time constants).
 """
 from __future__ import annotations
 
-import functools
 import re
 from typing import Dict, List, Tuple
 
@@ -97,6 +96,25 @@ def split_computations(hlo_text: str) -> Dict[str, List[str]]:
     return comps
 
 
+def _loop_totals(name: str, own: tuple, whiles: dict, trip_count,
+                 memo: dict) -> tuple:
+    """A computation's own (out, wire, count) totals plus each while
+    loop's body's totals times its trip count, memoised in ``memo``."""
+    if name in memo:
+        return memo[name]
+    o, w, c = (dict(t.get(name, {k: z for k in COLL_KINDS}))
+               for t, z in zip(own, (0.0, 0.0, 0)))
+    for cond, body in whiles.get(name, []):
+        n = trip_count(cond)
+        bo, bw, bc = _loop_totals(body, own, whiles, trip_count, memo)
+        for k in COLL_KINDS:
+            o[k] += n * bo[k]
+            w[k] += n * bw[k]
+            c[k] += n * bc[k]
+    memo[name] = (o, w, c)
+    return memo[name]
+
+
 def collective_analysis(hlo_text: str) -> dict:
     """Loop-aware totals: raw output bytes AND wire bytes per kind."""
     comps = split_computations(hlo_text)
@@ -132,23 +150,11 @@ def collective_analysis(hlo_text: str) -> dict:
                 best = max(best, int(m.group(1)))
         return best
 
-    @functools.lru_cache(maxsize=None)
-    def total(name: str):
-        o = dict(own_out.get(name, {k: 0.0 for k in COLL_KINDS}))
-        w = dict(own_wire.get(name, {k: 0.0 for k in COLL_KINDS}))
-        c = dict(own_cnt.get(name, {k: 0 for k in COLL_KINDS}))
-        for cond, body in whiles.get(name, []):
-            n = trip_count(cond)
-            bo, bw, bc = total(body)
-            for k in COLL_KINDS:
-                o[k] += n * bo[k]
-                w[k] += n * bw[k]
-                c[k] += n * bc[k]
-        return o, w, c
-
+    own = (own_out, own_wire, own_cnt)
+    memo: Dict[str, tuple] = {}
     entry = "__entry__" if "__entry__" in comps else ""
     if entry:
-        out, wire, cnt = total(entry)
+        out, wire, cnt = _loop_totals(entry, own, whiles, trip_count, memo)
     else:
         out = wire = {k: 0.0 for k in COLL_KINDS}
         cnt = {k: 0 for k in COLL_KINDS}
