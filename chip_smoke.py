@@ -702,12 +702,22 @@ def device_time_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    total = sum(e.self_device_time_total for e in device_ops(prof))
     if total <= 0:
         log("  torch.profiler recorded no device time; using CUDA events")
         return cuda_time_ms(fn, reps)
     return total / 1e3 / reps
+
+
+def device_ops(prof) -> list:
+    """The device operations of a profile's ``key_averages()``: kernels,
+    copies and fills.  A ``record_function`` range (every ``trace_span``
+    and ``trace_range`` of the port while a profiler records) also shows
+    on the device timeline, as a user annotation whose device time is its
+    whole elapsed span; it is left out."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def kernel_name(key: str) -> str:
@@ -728,10 +738,7 @@ def profile_summary(label: str, fn, wall_ms: float,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # the device-side spans of share_of's ranges are not kernels
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.key != share_of]
+    kern = device_ops(prof)
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     count = sum(e.count for e in kern)
     log(f"  {label}: {count} device kernels, device busy {busy:.3f} ms of "

@@ -54,6 +54,7 @@ from repro_torch.distributed.sharding import (
     shard_over_batch,
 )
 from repro_torch.obs.metrics import replaying
+from repro_torch.obs.tracing import trace_range
 
 from .nonlinear import iterated_solve
 from .options import (
@@ -705,26 +706,30 @@ class Estimator:
         -- the hot-serving opt-out also silences instrumentation) the
         solve is measured: phase spans ``estimator.solve.{prepare,compile,
         execute,host_transfer}`` (``compile`` for a new cache entry,
-        ``execute`` for a cached one; both labelled for ``torch.profiler``
-        and ended by a device synchronise on the card, so they time real
-        work), the ``cache.compile_seconds`` histogram of new entries and
-        the ``estimator.*``, ``nonlinear.*`` and ``linearize.*`` metrics.
-        Outputs are bit-identical either way.
+        ``execute`` for a cached one; both ended by a device synchronise on
+        the card, so they time real work), the ``cache.compile_seconds``
+        histogram of new entries and the ``estimator.*``, ``nonlinear.*``
+        and ``linearize.*`` metrics.  Either way, while a
+        ``torch.profiler`` records, the solve is an ``estimator.solve``
+        range on its timeline, with ``solve.*`` ranges at each layer
+        inside (``repro_torch.obs.tracing``).  Outputs are bit-identical
+        either way.
         """
         self._check_model(problem)
         if problem.kind == "ragged":
             return self._solve_ragged(problem)
         if not (self.diagnostics and obs.enabled()):
             # hot path: no obs object touched, nothing synchronised
-            fn, args, _, _ = self._prepare(problem)
-            return fn(*args)
+            with trace_range("estimator.solve"):
+                fn, args, _, _ = self._prepare(problem)
+                return fn(*args)
         with obs.trace_span("estimator.solve"):
             with obs.trace_span("estimator.solve.prepare"):
                 fn, args, fresh, mesh = self._prepare(problem)
             phase = ("estimator.solve.compile" if fresh
                      else "estimator.solve.execute")
             t0 = time.perf_counter()
-            with obs.trace_span(phase, record_function=True):
+            with obs.trace_span(phase):
                 out = fn(*args)
                 self._synchronize(mesh)
             if fresh:
@@ -858,10 +863,15 @@ class Estimator:
                 linearization=o.linearization)
             cost = None if trace is None else trace[-1]
         else:
-            grid = grid_lqt_from_linear(model, ts, y,
-                                        measurement_mask=mask, prior=prior)
+            with trace_range("solve.grid"):
+                grid = grid_lqt_from_linear(model, ts, y,
+                                            measurement_mask=mask,
+                                            prior=prior)
             sol = solve_grid(grid, self.options)
-            cost = om_cost_grid(grid, sol.x) if self.diagnostics else None
+            cost = None
+            if self.diagnostics:
+                with trace_range("solve.cost"):
+                    cost = om_cost_grid(grid, sol.x)
 
         def surface(a):
             if a is None:

@@ -22,6 +22,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.linearize import get_linearization
+from repro_torch.obs.tracing import trace_range
 
 from .combine import _solve_vec
 from .sde import NonlinearSDE, Prior, grid_lqt_from_nonlinear, om_cost_nonlinear
@@ -78,19 +79,22 @@ def iterated_solve(
     # iterations - 1 in a lax.scan and the last outside it -- the same
     # passes in the same order.
     for _ in range(iterations):
-        grid = grid_lqt_from_nonlinear(
-            model, ts, y, x, divergence_correction=divergence_correction,
-            measurement_mask=measurement_mask, prior=prior,
-            linearization=linearization)
+        with trace_range("solve.linearise"):
+            grid = grid_lqt_from_nonlinear(
+                model, ts, y, x, divergence_correction=divergence_correction,
+                measurement_mask=measurement_mask, prior=prior,
+                linearization=linearization)
         sol = solver(grid)
         if track_costs:
-            costs.append(cost_of(sol.x))
-            steps.append(torch.sqrt(torch.mean(torch.square(sol.x - x),
-                                               dim=(0, -1))))
+            with trace_range("solve.cost"):
+                costs.append(cost_of(sol.x))
+                steps.append(torch.sqrt(torch.mean(torch.square(sol.x - x),
+                                                   dim=(0, -1))))
         x = sol.x
     if not track_costs:
         return sol, None, None
-    return sol, torch.stack(costs), torch.stack(steps)
+    with trace_range("solve.cost"):
+        return sol, torch.stack(costs), torch.stack(steps)
 
 
 def iterated_map(

@@ -29,6 +29,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.obs.tracing import trace_range
+
 from . import pscan
 from .combine import (
     _mv,
@@ -75,40 +77,43 @@ def parallel_backward(
     scan elements and ``sub_elems`` the per-substep elements (``discrete``
     mode only, else None).
     """
-    if mode == "discrete":
-        blocks, sub = discrete_block_elements(grid, nsub)
-    elif mode in ("euler", "rk4"):
-        blocks = euler_block_elements(grid, nsub, integrator=mode)
-        sub = None
-    else:
-        raise ValueError(f"unknown element mode: {mode}")
-
-    elems = _append_elem(blocks, terminal_element(grid))
+    with trace_range("solve.elements"):
+        if mode == "discrete":
+            blocks, sub = discrete_block_elements(grid, nsub)
+        elif mode in ("euler", "rk4"):
+            blocks = euler_block_elements(grid, nsub, integrator=mode)
+            sub = None
+        else:
+            raise ValueError(f"unknown element mode: {mode}")
+        elems = _append_elem(blocks, terminal_element(grid))
     if suffix_scan_fn is not None:
         sbar = suffix_scan_fn(elems)
     else:
         sbar = pscan.suffix_scan(combine_fn, elems)
     boundary = ValueFn(sbar.J, sbar.eta)                      # (T+1, ...)
 
-    right = ValueFn(boundary.S[1:], boundary.v[1:])           # (T, ...)
-    if mode == "discrete":
-        interior = backward_value_fill_discrete(sub, right)   # (T, n, ...)
-    else:
-        interior = backward_value_fill_euler(grid, nsub, right,
-                                             integrator=mode)
+    with trace_range("solve.fill"):
+        right = ValueFn(boundary.S[1:], boundary.v[1:])       # (T, ...)
+        if mode == "discrete":
+            interior = backward_value_fill_discrete(sub, right)  # (T, n,)
+        else:
+            interior = backward_value_fill_euler(grid, nsub, right,
+                                                 integrator=mode)
 
-    # Each block's left point takes the scan-combined boundary value
-    # (identical in discrete mode; the parallel-consistent choice in euler
-    # mode), written in place into the freshly stacked fill, then the
-    # blocks flatten to the (N+1) substep grid.
-    S_blk, v_blk = interior
-    S_blk[:, 0] = boundary.S[:-1]
-    v_blk[:, 0] = boundary.v[:-1]
-    N = grid.N
-    values_full = ValueFn(
-        torch.cat([S_blk.reshape((N,) + S_blk.shape[2:]), boundary.S[-1:]]),
-        torch.cat([v_blk.reshape((N,) + v_blk.shape[2:]), boundary.v[-1:]]),
-    )
+        # Each block's left point takes the scan-combined boundary value
+        # (identical in discrete mode; the parallel-consistent choice in
+        # euler mode), written in place into the freshly stacked fill,
+        # then the blocks flatten to the (N+1) substep grid.
+        S_blk, v_blk = interior
+        S_blk[:, 0] = boundary.S[:-1]
+        v_blk[:, 0] = boundary.v[:-1]
+        N = grid.N
+        values_full = ValueFn(
+            torch.cat([S_blk.reshape((N,) + S_blk.shape[2:]),
+                       boundary.S[-1:]]),
+            torch.cat([v_blk.reshape((N,) + v_blk.shape[2:]),
+                       boundary.v[-1:]]),
+        )
     return values_full, boundary, blocks, sub
 
 
@@ -161,12 +166,13 @@ def parallel_rts(
     values_full, _, _, _ = parallel_backward(
         grid, nsub, mode, combine_fn=combine_fn,
         suffix_scan_fn=suffix_scan_fn)
-    phi = _recover_affine(grid, values_full, nsub, mode,
-                          prefix_scan_fn=prefix_scan_fn)
-    return MAPSolution(
-        x=torch.flip(phi, (0,)),
-        S=torch.flip(values_full.S, (0,)),
-        v=torch.flip(values_full.v, (0,)))
+    with trace_range("solve.recover"):
+        phi = _recover_affine(grid, values_full, nsub, mode,
+                              prefix_scan_fn=prefix_scan_fn)
+        return MAPSolution(
+            x=torch.flip(phi, (0,)),
+            S=torch.flip(values_full.S, (0,)),
+            v=torch.flip(values_full.v, (0,)))
 
 
 def _grid_slice(grid: GridLQT, sl: slice) -> GridLQT:

@@ -22,9 +22,11 @@ serialises ``snapshot()`` plus seeds and an environment fingerprint into
 the reference's schema-v1 ``BENCH_<name>.json`` artifact.
 
 The reference's two profiler passthroughs carry PyTorch's wording here:
-``trace_span(name, xla=True)`` is ``trace_span(name,
-record_function=True)`` and ``xla_profile(logdir)`` is
-``torch_profile(logdir)``.
+``xla_profile(logdir)`` is ``torch_profile(logdir)``, and every
+``trace_span`` is a range on the timeline of a recording
+``torch.profiler`` (its ``record_function=`` stands for the reference's
+``xla=`` and changes nothing).  ``tracing.trace_range(name)`` is such a
+range alone, with no span: the program's layer boundaries.
 """
 from .export import (
     ROW_KEYS,

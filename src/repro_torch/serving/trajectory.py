@@ -46,6 +46,7 @@ from repro_torch.core.estimator import Estimator, Problem, legacy_options
 from repro_torch.core.padding import bucket_length, slice_solution
 from repro_torch.core.sde import LinearSDE, NonlinearSDE
 from repro_torch.core.types import Solution
+from repro_torch.obs.tracing import trace_range
 
 from .waves import (
     WaveItem,
@@ -202,8 +203,12 @@ class TrajectoryEngine:
 
         With :mod:`repro_torch.obs` enabled each wave reports occupancy,
         padding waste, queue depth and per-record submit-to-done latency
-        (``engine.record_latency_seconds``; the estimator's measured path
-        waits for the card, so the latency covers the solve)."""
+        (``engine.record_latency_seconds``).  The latency covers the solve
+        only there: the estimator's measured path synchronises with the
+        card; without telemetry the solve returns once its work is queued.
+        While a ``torch.profiler`` records, the wave is an ``engine.step``
+        range with ``engine.pack``, ``estimator.solve`` and
+        ``engine.slice`` inside."""
         with self._lock:
             if not self._queue:
                 return 0
@@ -211,18 +216,20 @@ class TrajectoryEngine:
             depth = len(self._queue)
         with obs.trace_span("engine.step"):
             n_pad = wave[0].n_pad
-            ts_b, ys_b, mask_b, _, _ = pack_wave(
-                wave, self.batch, device=self.estimator.device,
-                dtype=self.estimator._model.dtype)
+            with trace_range("engine.pack"):
+                ts_b, ys_b, mask_b, _, _ = pack_wave(
+                    wave, self.batch, device=self.estimator.device,
+                    dtype=self.estimator._model.dtype)
             sol = self.estimator.solve(
                 Problem.stacked(self.model, ts_b, ys_b,
                                 measurement_mask=mask_b))
-            done = {item.key: slice_solution(sol, row, item.y.shape[0])
-                    for row, item in enumerate(wave)}
-            with self._lock:
-                self._done.update(done)
-                self.waves += 1
-                self.recycled_rows += self.batch - len(wave)
+            with trace_range("engine.slice"):
+                done = {item.key: slice_solution(sol, row, item.y.shape[0])
+                        for row, item in enumerate(wave)}
+                with self._lock:
+                    self._done.update(done)
+                    self.waves += 1
+                    self.recycled_rows += self.batch - len(wave)
             if obs.enabled():
                 record_wave_metrics("engine", wave, n_pad, self.batch, depth)
         return len(wave)

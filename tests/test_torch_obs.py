@@ -255,6 +255,59 @@ def test_torch_profile_writes_trace_with_labelled_spans(tmp_path):
     assert any(e.key == "port.labelled" for e in prof.key_averages())
 
 
+@pytest.mark.parametrize("telemetry", [False, True], ids=["off", "on"])
+def test_trace_range_labels_a_profile_and_records_nothing(telemetry):
+    """``tracing.trace_range`` is a range on a recording profiler's
+    timeline alone: no span tree, no histogram, no counter, whether
+    telemetry is on or off."""
+    from repro_torch.obs.tracing import trace_range
+
+    if telemetry:
+        obs.enable()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with trace_range("port.range"):
+            torch.ones(8).sum()
+    assert [e.name for e in prof.events()].count("port.range") == 1
+    assert obs.REGISTRY.is_empty()
+    assert obs.span_trees() == []
+
+
+def test_trace_range_without_a_profiler_opens_nothing(monkeypatch):
+    """Without a recording profiler ``trace_range`` never reaches
+    ``record_function``: it hands back one shared no-op context."""
+    from repro_torch.obs import tracing
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) was called")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    for telemetry in (False, True):
+        (obs.enable if telemetry else obs.disable)()
+        a, b = tracing.trace_range("x"), tracing.trace_range("y")
+        assert a is b
+        with a:
+            pass
+        with obs.trace_span("w"):
+            pass
+    assert "trace_range" not in obs.__all__
+
+
+def test_trace_span_labels_a_profile_with_telemetry_off():
+    """``trace_span`` puts its name on a recording profiler's timeline
+    with telemetry off too (its ``record_function`` argument changes
+    nothing), and records no span there."""
+    assert not obs.enabled()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with obs.trace_span("port.span"):
+            torch.ones(8).sum()
+        with obs.trace_span("port.span", record_function=False):
+            pass
+    assert [e.name for e in prof.events()].count("port.span") == 2
+    assert obs.span_trees() == [] and obs.REGISTRY.is_empty()
+
+
 def test_public_surface_matches_reference():
     """The reference's ``__all__`` with its two profiler names in
     PyTorch's wording."""
