@@ -71,7 +71,13 @@ from .padding import (
     slice_solution,
 )
 from .registry import get_method
-from .sde import LinearSDE, NonlinearSDE, grid_lqt_from_linear, om_cost_grid
+from .sde import (
+    LinearSDE,
+    NonlinearSDE,
+    _pinv_q,
+    grid_lqt_from_linear,
+    om_cost_grid,
+)
 from .types import BucketInfo, PaddingReport, Solution
 
 Model = Union[LinearSDE, NonlinearSDE]
@@ -871,7 +877,9 @@ class Estimator:
             cost = None
             if self.diagnostics:
                 with trace_range("solve.cost"):
-                    cost = om_cost_grid(grid, sol.x)
+                    # a constant Q's pseudo-inverse once, not per point
+                    Qpinv = None if callable(model.Q) else _pinv_q(model.Q)
+                    cost = om_cost_grid(grid, sol.x, Qpinv=Qpinv)
 
         def surface(a):
             if a is None:
@@ -901,6 +909,9 @@ class Estimator:
                           lin.num_points(self.model.nx))
         if sol.cost is not None:
             obs.record("estimator.final_cost", sol.cost.mean())
+            if isinstance(self.model, LinearSDE):
+                obs.inc("cost.qpinv.grid" if callable(self.model.Q)
+                        else "cost.qpinv.once")
         if sol.cost_trace is not None:
             trace = sol.cost_trace
             obs.set_gauge("nonlinear.iterations", trace.shape[-1])

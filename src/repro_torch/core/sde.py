@@ -40,7 +40,10 @@ Prior = Tuple[Tensor, Tensor]
 # refuses more than 23325 to 32016 matrices in one call (n = 32 down to 2),
 # so _psd_sqrt runs its eigendecompositions in chunks of at most this many;
 # chip_smoke.py probes the limit and holds the constant below it.
-# cholesky, inv and pinv take a grid of 1.31 M matrices whole.
+# cholesky, inv and pinv take a grid of 1.31 M matrices whole.  A constant
+# noise matrix is factored once and broadcast (_factor_once; the
+# estimator's OM cost takes one pseudo-inverse of a constant Q): only a
+# callable one is factored on every grid point.
 EIGH_CHUNK = 16384
 
 
@@ -403,22 +406,34 @@ def om_cost_nonlinear(
     return cost
 
 
-def om_cost_grid(grid: GridLQT, x: Tensor) -> Tensor:
+def _pinv_q(Q: Tensor) -> Tensor:
+    """Pseudo-inverse of ``Q`` (one matrix or a grid of them) with the
+    reference's cutoff ``rtol = 10 max(m, n) eps`` (torch's default
+    cutoff is ten times smaller)."""
+    n = Q.shape[-1]
+    return torch.linalg.pinv(Q, rtol=10.0 * n * torch.finfo(Q.dtype).eps)
+
+
+def om_cost_grid(grid: GridLQT, x: Tensor,
+                 Qpinv: Optional[Tensor] = None) -> Tensor:
     """Onsager-Machlup cost of ``x`` (ORIGINAL time order, ``(N+1, *R,
     nx)``) under a built grid problem: the objective of a MAP solution.
 
     ``Q`` may be singular: the dynamics term uses the pseudo-inverse with
-    the reference's cutoff ``rtol = 10 max(m, n) eps`` (torch's default
-    cutoff is ten times smaller).
+    the reference's cutoff ``rtol = 10 max(m, n) eps``.  ``Qpinv`` is that
+    pseudo-inverse of a constant Q, one ``(nx, nx)`` matrix factored once
+    (the estimator passes it; the quadratic form is then one GEMM over
+    every point).  Without it every point's ``grid.Q`` is factored.
     """
     phi = torch.flip(x, (0,))                     # phi_j = x_{N-j}
     dt = grid.dt
     resid = (phi[1:] - phi[:-1]) / dt[..., None] - (
         _mv(grid.F, phi[:-1]) + grid.c)
-    n = grid.Q.shape[-1]
-    Qpinv = torch.linalg.pinv(
-        grid.Q, rtol=10.0 * n * torch.finfo(grid.Q.dtype).eps)
-    cost = 0.5 * torch.sum(dt * _quad(resid, Qpinv), dim=0)
+    if Qpinv is None:
+        dyn = _quad(resid, _pinv_q(grid.Q))
+    else:
+        dyn = (resid * (resid @ Qpinv.mT)).sum(-1)
+    cost = 0.5 * torch.sum(dt * dyn, dim=0)
     innov = grid.y - (_mv(grid.H, phi[:-1]) + grid.r)
     cost = cost + 0.5 * torch.sum(dt * _quad(innov, grid.Rinv), dim=0)
     if grid.lin is not None:

@@ -45,6 +45,14 @@ never a ``span.<name>`` histogram)::
     |                       step norm, then the traces' stack
     `- engine.slice         slice_solution per record, bookkeeping
 
+The linear OM cost factors ``Q`` once a solve when the model's ``Q`` is
+a constant tensor, and on every grid point when it is a callable of t.
+While telemetry and ``diagnostics`` are on, each linear solve counts
+which it took, one of two counters (beside ``estimator.solves``)::
+
+    cost.qpinv.once         Q's pseudo-inverse taken once and broadcast
+    cost.qpinv.grid         one pseudo-inverse per grid point (callable Q)
+
 The eq.-(42) suffix scan (between ``solve.elements`` and ``solve.fill``;
 its kernel is named ``lqt_scan_kernel`` on the trace) and the
 ``Solution``'s copies at the end of the solve sit in ``estimator.solve``

@@ -329,8 +329,9 @@ def test_executable_cache_reuse():
 
 def test_solve_phases_and_cache_metrics(wiener):
     """``tests/test_obs.py::test_solve_phases_and_cache_metrics``: a fresh
-    solve then a cached one give the same counters, histograms and span
-    counts in both packages."""
+    solve then a cached one give the same counters (the port's
+    ``cost.qpinv.once`` aside), histograms and span counts in both
+    packages."""
     w = wiener
     jmodel = wiener_velocity()           # new model objects: a fresh entry
     snaps = []
@@ -352,6 +353,8 @@ def test_solve_phases_and_cache_metrics(wiener):
         pkg.disable()
     (jsnap, jmiss, jhit), (tsnap, tmiss, thit) = snaps
     assert (tmiss, thit) == (jmiss, jhit)
+    # the port also counts how the OM cost factored Q (constant: once)
+    assert tsnap["counters"].pop("cost.qpinv.once") == 2
     assert tsnap["counters"] == jsnap["counters"]
     th, jh = tsnap["histograms"], jsnap["histograms"]
     for name in ("cache.compile_seconds", "span.estimator.solve",

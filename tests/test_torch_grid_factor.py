@@ -15,6 +15,11 @@ zero); the simulators give the same bits chunked and unchunked from the
 same ``torch.Generator`` seed; and a solve and ``om_cost_grid`` on that
 model match the reference's at the tolerances of
 ``tests/test_torch_estimator.py`` and ``tests/test_torch_core.py``.
+
+A constant Q is the other case: the estimator's OM cost takes its
+pseudo-inverse once a solve instead of on every grid point, and the
+cost of a stacked solve still matches the reference's ``om_cost_grid``
+record by record, with and without a mask and a prior.
 """
 import dataclasses
 import gc
@@ -38,6 +43,7 @@ from repro_torch.core import (
     ParallelOptions,
     Problem,
 )
+from repro_torch import obs
 from repro_torch.core import sde as tsde
 
 torch.set_num_threads(1)
@@ -208,3 +214,95 @@ def test_om_cost_grid_with_time_varying_q_matches_reference(
         tsde.om_cost_grid(tgrid, torch.as_tensor(x)).numpy(),
         np.asarray(jsde.om_cost_grid(jgrid, jnp.asarray(x))),
         rtol=1e-10, atol=1e-12)
+
+
+def _stacked_wiener_problem(tmodel, masked, with_prior):
+    """RECORDS Wiener records of N intervals (distinct end times) from the
+    port's simulator, with an optional mask (about a quarter of the
+    intervals unobserved) and an optional shared information-form prior;
+    the port's stacked problem and the same arrays in NumPy."""
+    ts = _stacked_grid(3.0)
+    _, y = tsde.simulate_linear(tmodel, ts, torch.Generator().manual_seed(9))
+    arrays = dict(ts=ts.T.numpy(), y=y.movedim(1, 0).numpy(), mask=None,
+                  prior=None)
+    if masked:
+        keep = np.random.default_rng(2).random((RECORDS, N)) > 0.25
+        arrays["mask"] = keep.astype(np.float64)
+    if with_prior:
+        S0 = np.diag([50.0, 80.0, 20.0, 30.0]) + 5.0
+        arrays["prior"] = (S0, S0 @ np.array([4.0, 6.0, 0.5, -0.5]))
+    problem = Problem.stacked(tmodel, arrays["ts"], arrays["y"],
+                              measurement_mask=arrays["mask"],
+                              prior=arrays["prior"])
+    return problem, arrays
+
+
+@pytest.mark.parametrize("with_prior", [False, True], ids=["m0P0", "prior"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("q_jitter", [0.0, 0.3], ids=["singular", "regular"])
+def test_stacked_cost_with_constant_q_matches_reference(q_jitter, masked,
+                                                        with_prior):
+    """``Estimator(diagnostics=True)`` on a stacked batch of RECORDS
+    Wiener records with a constant Q, singular (``q_jitter = 0``) or not:
+    each record's ``Solution.cost`` (Q's pseudo-inverse taken once) equals
+    the reference's ``om_cost_grid`` on its own grid at the port's
+    trajectory, rtol 1e-10, atol 1e-12."""
+    tmodel = WienerVelocityConfig(q_jitter=q_jitter).model()
+    jmodel = JWiener(q_jitter=q_jitter).model()
+    problem, a = _stacked_wiener_problem(tmodel, masked, with_prior)
+    sol = Estimator(tmodel, method="parallel_kernel",
+                    options=METHODS["parallel_kernel"], device="cpu",
+                    diagnostics=True).solve(problem)
+    assert sol.cost.shape == (RECORDS,)
+    jprior = None if a["prior"] is None else tuple(map(jnp.asarray,
+                                                      a["prior"]))
+    want = []
+    for r in range(RECORDS):
+        jgrid = jsde.grid_lqt_from_linear(
+            jmodel, jnp.asarray(a["ts"][r]), jnp.asarray(a["y"][r]),
+            measurement_mask=(None if a["mask"] is None
+                              else jnp.asarray(a["mask"][r])),
+            prior=jprior)
+        want.append(float(jsde.om_cost_grid(jgrid,
+                                            jnp.asarray(sol.x[r].numpy()))))
+    np.testing.assert_allclose(sol.cost.numpy(), np.array(want),
+                               rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["constant", "callable"])
+def test_cost_factors_constant_q_once_and_callable_q_per_point(
+        monkeypatch, kind):
+    """The batch shapes ``torch.linalg.pinv`` sees in one stacked solve
+    with telemetry on: a constant Q is factored as one matrix
+    (``cost.qpinv.once`` reads 1), a callable Q on every grid point of
+    every record (``cost.qpinv.grid`` reads 1)."""
+    tmodel = WienerVelocityConfig().model()
+    if kind == "callable":
+        tmodel = _wiener_tv()[0]
+    shapes = []
+    pinv = torch.linalg.pinv
+
+    def recording_pinv(A, *args, **kwargs):
+        shapes.append(tuple(A.shape[:-2]))
+        return pinv(A, *args, **kwargs)
+
+    monkeypatch.setattr(torch.linalg, "pinv", recording_pinv)
+    problem, _ = _stacked_wiener_problem(tmodel, False, False)
+    est = Estimator(tmodel, method="parallel_kernel",
+                    options=METHODS["parallel_kernel"], device="cpu",
+                    diagnostics=True)
+    was = obs.enabled()
+    obs.reset()
+    obs.enable()
+    try:
+        sol = est.solve(problem)
+        counters = obs.snapshot()["counters"]
+    finally:
+        obs.reset()
+        (obs.enable if was else obs.disable)()
+    assert bool(torch.isfinite(sol.cost).all())
+    used, unused = (("cost.qpinv.once", "cost.qpinv.grid")
+                    if kind == "constant" else
+                    ("cost.qpinv.grid", "cost.qpinv.once"))
+    assert shapes == ([()] if kind == "constant" else [(N, RECORDS)])
+    assert counters[used] == 1 and unused not in counters
