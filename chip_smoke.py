@@ -5,10 +5,11 @@
 
 Phases, each of which fails the run on any miss:
 
-1. build      -- compile the six CUDA kernel libraries from the sources
+1. build      -- compile the seven CUDA kernel libraries from the sources
                  in this checkout (one ``nvcc`` per source, all at once,
                  for ``sm_90a`` into ``build/``): ``lqt_combine`` (pairwise),
-                 ``lqt_scan`` (a whole scan in one launch), and two
+                 ``lqt_scan`` (a whole scan in one launch),
+                 ``lqt_scan_wide`` (states 9 to NX_WIDE wide), and two
                  variants each of ``flash_attention`` and ``ssd_chunked``
                  (``mma``: bf16 tensor cores; ``simt``: float32 CUDA
                  cores), with ptxas's register and spill counts per
@@ -22,7 +23,12 @@ Phases, each of which fails the run on any miss:
                  at the paths' nx = 4, 5; n in {1, 2, 17, 513} at the
                  others), records {1, 64}, float32 and float64, both
                  directions, and
-                 ``kernel_suffix_scan`` against the core suffix scan;
+                 ``kernel_suffix_scan`` against the core suffix scan; the
+                 wide kernel against the plain scan at l96-batch64's scan
+                 (513 elements x 64 records, nx = 40, both directions,
+                 float64 and float32, its launches a scan) and its
+                 pairwise entry against the plain combine at a block
+                 fold's 32768 pairs;
                  ``flash_attention`` and
                  ``ssd_chunked`` in float32 and bfloat16 on the reference's
                  small test cases, at D = 80 (hubert's and danube's
@@ -61,6 +67,13 @@ Phases, each of which fails the run on any miss:
                  (``discrete``), the cost traces, median solve times of the
                  three methods, one profiled solve per cell, and the solve in
                  float32 (its distance from float64 printed, not gated);
+3b'. Lorenz-96 -- one wave of l96-batch64 (64 records of 5120
+                 intervals, N = 40, 5 passes) through ``TrajectoryEngine``
+                 after a warm wave, every launch counter zeroed just
+                 before it: the wide kernel's launches a pass, the
+                 pairwise entry's in-block steps, no ``lqt_scan`` or
+                 ``lqt_combine`` launch, the telemetry counters alike;
+                 four records against ``parallel_rts`` (1e-8);
 3c. sigma point -- ``method="sigma_point"`` (the posterior-linearisation
                  smoother, section 5.2's model) on the nonlinear phase's
                  records: unscented SLR on one record and on 64, cubature
@@ -148,7 +161,10 @@ Phases, each of which fails the run on any miss:
                  per-level scan had (graph replay, eager calls, profiler),
                  beside its plain version and bound, summed over the user
                  scans' launches (its row in the report) and over the
-                 per-level scan's shapes of the estimation paths;
+                 per-level scan's shapes of the estimation paths; the
+                 wide kernel at the Lorenz-96 wave's scans and its
+                 pairwise entry at the wave's fold and value steps, each
+                 beside its plain version and its bound (two report rows);
 3k. long grid -- (after 3i') the Wiener velocity model with a
                  time-varying noise Q(t) = Q (1 + 0.5 sin t) (Q stays
                  singular), float64: one record of 16384 blocks x nsub =
@@ -319,8 +335,10 @@ Phases, each of which fails the run on any miss:
                  power limit, and the final status line.
 
 It needs a CUDA card: without one it exits non-zero and prints no result.
-``--phases long-grid,sharded2x2,collector`` (any of them, in the order
-given) runs only those phases after the build, and prints no report.
+``--phases long-grid,sharded2x2,collector,wide`` (any of them, in the
+order given) runs only those phases after the build, and prints no
+report; ``wide`` (2's wide checks, 3b' and the wide rows of 3j) prints
+its two rows.
 It imports only the port, never the JAX reference package.
 """
 from __future__ import annotations
@@ -405,6 +423,9 @@ SCAN_SWEEP = (2, 3, 5, 9, 17, 33, 65, 129, 257, 513, 1025, 2049)
 PATH_NX = (4, 5)
 SCAN_CHECK_N = {True: (1, 2, 17, N_BLOCKS // 4 + 1, N_BLOCKS + 1),
                 False: (1, 2, 17, N_BLOCKS // 4 + 1)}
+# Lorenz-96 cell (l96-batch64): 512 blocks of the configuration's nsub in
+# waves of RECORDS, state 40 wide (the wide kernel's path)
+L96_BLOCKS, L96_NX = 512, 40
 
 # hymba-1.5b serving cell: two waves of 8 prompts of 2048 tokens.  2048 is
 # a multiple of the 1024 window, the 256 SSD chunk and chunked_mha's 512
@@ -922,6 +943,233 @@ def check_scan(g, lqt_scan, lqt_ref) -> None:
                     f"each, worst normwise rel err {worst:.3e} (tol "
                     f"{SCAN_RTOL[dtype]:.0e}) ok")
     torch.cuda.empty_cache()
+
+
+
+def check_wide(g, lqt_scan, lqt_ref) -> None:
+    """The wide kernel against the plain scan at l96-batch64's scan (513
+    elements x 64 records, nx = 40, both directions, float64 and
+    float32: ``wide_launches(513)`` launches, none of the register
+    kernel), and its pairwise entry against the plain combine at a block
+    fold's step (32768 pairs: substeps 0 and 1 of 512 blocks x 64
+    records, read in place from strided views), one launch."""
+    from repro_torch.core.types import LQTElement
+
+    n, nx = L96_BLOCKS + 1, L96_NX
+    for dtype in (torch.float64, torch.float32):
+        for rev in (False, True):
+            e = random_elems(n, RECORDS, nx, dtype, g)
+            before = lqt_scan.wide_launch_count(), lqt_scan.launch_count()
+            got = lqt_scan.lqt_scan_wide(e, reverse=rev)
+            launched = (lqt_scan.wide_launch_count() - before[0],
+                        lqt_scan.launch_count() - before[1])
+            want = lqt_ref.lqt_scan_ref(e, reverse=rev)
+            torch.cuda.synchronize()
+            _, rel = compare(got, want)
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            ok = (launched == (lqt_scan.wide_launches(n), 0) and finite
+                  and rel < SCAN_RTOL[dtype])
+            log(f"  lqt_scan_wide {str(dtype)[6:]} nx={nx} n={n} "
+                f"R={RECORDS} reverse={rev}: {launched[0]} launches "
+                f"(lqt_scan {launched[1]}), normwise rel err {rel:.3e} "
+                f"(tol {SCAN_RTOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"lqt_scan_wide {dtype} reverse={rev}: launches "
+                    f"{launched}, rel err {rel:.3e}, finite {finite}")
+            del e, got, want
+        sub = random_elems(L96_BLOCKS, RECORDS * 2, nx, dtype, g)
+        sub = LQTElement(*(x.reshape((L96_BLOCKS, RECORDS, 2) + x.shape[2:])
+                           for x in sub))
+        a, b = (LQTElement(*(x[:, :, l] for x in sub)) for l in (0, 1))
+        before = lqt_scan.pair_launch_count()
+        got = lqt_scan.lqt_combine_wide(a, b)
+        launched = lqt_scan.pair_launch_count() - before
+        want = lqt_ref.lqt_combine_ref(*a, *b)
+        torch.cuda.synchronize()
+        _, rel = compare(got, want)
+        ok = launched == 1 and rel < KERNEL_RTOL[dtype]
+        log(f"  lqt_combine_wide {str(dtype)[6:]} nx={nx} "
+            f"{L96_BLOCKS * RECORDS} pairs: {launched} launch, normwise rel "
+            f"err {rel:.3e} (tol {KERNEL_RTOL[dtype]:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"lqt_combine_wide {dtype}: {launched} "
+                                 f"launches, rel err {rel:.3e}")
+        del sub, a, b, got, want
+    torch.cuda.empty_cache()
+
+
+def lorenz96_path(lqt_kernel, lqt_scan) -> dict:
+    """One wave of l96-batch64: 64 Lorenz-96 records of 5120 intervals
+    (``simulate_nonlinear`` on the card) through
+    ``TrajectoryEngine(batch=64, method="parallel_kernel")`` with the
+    configuration's options, after a warm wave, with every launch counter
+    zeroed just before it: ``wide_launches(513)`` wide-kernel launches a
+    pass, the in-block steps' pairwise launches (nsub - 1 folds, nsub
+    value steps and the recovery's maps a pass), no ``lqt_scan`` or
+    ``lqt_combine`` launch, the telemetry counters alike; four records
+    against ``parallel_rts`` with the core's steps on the card."""
+    from repro_torch import obs
+    from repro_torch.configs import lorenz96
+    from repro_torch.core import (
+        Estimator,
+        IteratedOptions,
+        KernelOptions,
+        ParallelOptions,
+        Problem,
+        simulate_nonlinear,
+        time_grid,
+    )
+    from repro_torch.serving import TrajectoryEngine
+
+    cfg = lorenz96.config()
+    model = cfg.model(device="cuda")
+    N = L96_BLOCKS * cfg.nsub
+    ts = time_grid(cfg.t0, cfg.tf, N, dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    _, y = simulate_nonlinear(model, ts[:, None].expand(-1, RECORDS), gen)
+    host = [(ts.cpu().numpy(), y[:, i].cpu().numpy()) for i in range(RECORDS)]
+
+    def opts(inner):
+        return IteratedOptions(inner=inner(nsub=cfg.nsub, mode="discrete"),
+                               iterations=cfg.iterations)
+
+    eng = TrajectoryEngine(model, batch=RECORDS, method="parallel_kernel",
+                           options=opts(KernelOptions))
+
+    def wave():
+        tickets = [eng.submit(t, yi) for t, yi in host]
+        eng.run()
+        torch.cuda.synchronize()
+        return tickets
+
+    t0 = time.perf_counter()
+    wave()
+    warm_s = time.perf_counter() - t0
+    for reset in (lqt_kernel.reset_launch_count, lqt_scan.reset_launch_count,
+                  lqt_scan.reset_wide_launch_count,
+                  lqt_scan.reset_pair_launch_count):
+        reset()
+    obs.reset()
+    obs.enable()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tickets = wave()
+    wave_s = time.perf_counter() - t0
+    counters = obs.snapshot()["counters"]
+    obs.disable()
+    got = dict(eng.collect(tickets=tickets))
+    passes, T = cfg.iterations, L96_BLOCKS
+    want = {"wide": passes * lqt_scan.wide_launches(T + 1),
+            "pairs": passes * 2 * cfg.nsub, "lqt_scan": 0, "lqt_combine": 0}
+    counts = {"wide": lqt_scan.wide_launch_count(),
+              "pairs": lqt_scan.pair_launch_count(),
+              "lqt_scan": lqt_scan.launch_count(),
+              "lqt_combine": lqt_kernel.launch_count()}
+    telemetry = (counters.get("scan.kernel.wide", 0),
+                 counters.get("scan.kernel.regs", 0))
+    log(f"Lorenz-96 (N = 40), {RECORDS} records x {N} intervals, "
+        f"{passes} passes, TrajectoryEngine(batch={RECORDS}, "
+        f"'parallel_kernel', discrete, float64) on {card()}: warm wave "
+        f"{warm_s:.2f} s, counted wave {wave_s:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{counts} (want {want}); counters scan.kernel.wide / .regs "
+        f"{telemetry}")
+    if counts != want or telemetry != (want["wide"], 0):
+        raise AssertionError(f"Lorenz-96 wave: launches {counts}, counters "
+                             f"{telemetry}; want {want}")
+    xs = torch.stack([got[t].x for t in tickets[:4]])
+    ref = Estimator(model, method="parallel_rts",
+                    options=opts(ParallelOptions)).solve(
+        Problem.stacked(model, ts, y[:, :4].movedim(1, 0))).x
+    gap = float((xs - ref).abs().max() / ref.abs().max())
+    ok = bool(torch.isfinite(xs).all()) and gap < NL_KERNEL_TOL
+    log(f"  four records, engine (the wide kernel) vs Estimator "
+        f"parallel_rts (the core's steps): normwise gap {gap:.3e} (tol "
+        f"{NL_KERNEL_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"Lorenz-96 wave: gap {gap:.3e} to "
+                             f"parallel_rts")
+    del eng, got, xs, ref, y
+    torch.cuda.empty_cache()
+    return {"wave_s": wave_s, "scans": passes, "launches": counts["wide"],
+            "pairs": counts["pairs"], "fold_steps": passes * (2 * cfg.nsub - 1),
+            "map_steps": passes}
+
+
+def wide_timing(g, lqt_scan, lqt_ref, wave: dict) -> list:
+    """The report rows of ``lqt_scan_wide`` and ``lqt_combine_wide`` at a
+    Lorenz-96 wave's launches (CUDA events around a CUDA-graph replay, or
+    eager calls where capture is refused), beside the plain scan and
+    combine and each kernel's bound from its inputs: the scan summed over
+    the wave's scans, the pairwise entry over its fold and value steps
+    (32768 pairs each; the recovery's maps, one launch a pass over every
+    point, are not timed)."""
+    from repro_torch.core.types import LQTElement
+
+    n, nx, R = L96_BLOCKS + 1, L96_NX, RECORDS
+    e = random_elems(n, R, nx, torch.float64, g)
+    err = compare(lqt_scan.lqt_scan_wide(e, reverse=True),
+                  lqt_ref.lqt_scan_ref(e, reverse=True))[0]
+    ms, how = scan_time_ms(lambda: lqt_scan.lqt_scan_wide(e, reverse=True), 5)
+    eager = cuda_time_ms(lambda: lqt_scan.lqt_scan_wide(e, reverse=True), 5)
+    plain = cuda_time_ms(lambda: lqt_ref.lqt_scan_ref(e, reverse=True), 3)
+    combines = sum(scan_lane_counts(n, R))
+    nbytes, flops = scan_bytes(n, R, nx, 8), combines * combine_flops(nx)
+    b_ms, b_by = bound(nbytes, flops, torch.float64)
+    log(f"  lqt_scan_wide, a scan of {n} elements x {R} records (nx={nx}, "
+        f"float64, {combines} combines, {lqt_scan.wide_launches(n)} "
+        f"launches): {ms:.3f} ms ({how}; eager calls {eager:.3f} ms), plain "
+        f"scan {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {b_ms / ms:.4f} "
+        f"of the bound; x{wave['scans']} a wave")
+    k = wave["scans"]
+    rows = [{"name": "lqt_scan_wide", "route": "cuda",
+             "source": "src/repro_torch/kernels/lqt_combine/csrc/"
+                       "lqt_scan_wide.cu",
+             "replaces": "src/repro/kernels/lqt_combine/kernel.py:115",
+             "launches": wave["launches"], "max_abs_err": err,
+             "ms": k * ms, "eager_ms": k * eager, "plain_ms": k * plain,
+             "bound_ms": k * b_ms, "bound_by": b_by, "library_ms": None,
+             "timing": how, "per_scan_ms": ms, "per_scan_plain_ms": plain,
+             "per_scan_bound_ms": b_ms,
+             "note": f"a Lorenz-96 wave's {k} scans of {n} x {R} at nx {nx}"}]
+    del e
+    sub = random_elems(L96_BLOCKS, R * 2, nx, torch.float64, g)
+    sub = LQTElement(*(x.reshape((L96_BLOCKS, R, 2) + x.shape[2:])
+                       for x in sub))
+    a, b = (LQTElement(*(x[:, :, l] for x in sub)) for l in (0, 1))
+    B = L96_BLOCKS * R
+    err = compare(lqt_scan.lqt_combine_wide(a, b),
+                  lqt_ref.lqt_combine_ref(*a, *b))[0]
+    ms, how = scan_time_ms(lambda: lqt_scan.lqt_combine_wide(a, b), 10)
+    eager = cuda_time_ms(lambda: lqt_scan.lqt_combine_wide(a, b), 10)
+    plain = cuda_time_ms(lambda: lqt_ref.lqt_combine_ref(*a, *b), 3)
+    nbytes, flops = B * combine_bytes(nx, 8), B * combine_flops(nx)
+    b_ms, b_by = bound(nbytes, flops, torch.float64)
+    steps = wave["pairs"] - wave["map_steps"]
+    log(f"  lqt_combine_wide, a fold step of {B} pairs (nx={nx}, float64): "
+        f"{ms:.3f} ms ({how}; eager calls {eager:.3f} ms), plain combine "
+        f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} "
+        f"MB, {flops / 1e9:.2f} GFLOP), {b_ms / ms:.4f} of the bound; "
+        f"x{steps} a wave (folds and value steps)")
+    rows.append({"name": "lqt_combine_wide", "route": "cuda",
+                 "source": "src/repro_torch/kernels/lqt_combine/csrc/"
+                           "lqt_scan_wide.cu",
+                 "replaces": "src/repro/kernels/lqt_combine/kernel.py:115",
+                 "launches": wave["pairs"], "max_abs_err": err,
+                 "ms": steps * ms, "eager_ms": steps * eager,
+                 "plain_ms": steps * plain, "bound_ms": steps * b_ms,
+                 "bound_by": b_by, "library_ms": None, "timing": how,
+                 "per_launch_ms": ms, "per_launch_plain_ms": plain,
+                 "per_launch_bound_ms": b_ms,
+                 "note": f"a Lorenz-96 wave's {steps} fold and value steps "
+                         f"of {B} pairs at nx {nx}; its {wave['map_steps']} "
+                         f"recovery-map launches are not timed"})
+    del sub, a, b
+    torch.cuda.empty_cache()
+    return rows
 
 
 # (B, Hq, Hkv, Lq, Lk, D, causal, window): the reference's five test cases,
@@ -4964,7 +5212,7 @@ def lm_kernel_timing(paths, fa_kernel, fa_ref, ssd_kernel, ssd_ref,
 
 # the phases ``--phases`` can run alone, after the build (for trying them
 # on the card; the script's own run takes no arguments and runs them all)
-SELECTABLE = ("long-grid", "collector", "sharded2x2")
+SELECTABLE = ("long-grid", "collector", "sharded2x2", "wide")
 
 
 def selected_phases(argv) -> list | None:
@@ -4980,8 +5228,10 @@ def selected_phases(argv) -> list | None:
 
 
 def run_selected(names, lqt_kernel, lqt_scan, fa_kernel, ssd_kernel) -> int:
-    """Run the named phases alone; no report line."""
+    """Run the named phases alone; no report line (``wide`` prints its
+    two kernels' rows)."""
     from repro_torch.config import get_config
+    from repro_torch.kernels.lqt_combine import ref as lqt_ref
 
     for name in names:
         if name == "long-grid":
@@ -4990,6 +5240,14 @@ def run_selected(names, lqt_kernel, lqt_scan, fa_kernel, ssd_kernel) -> int:
         elif name == "collector":
             phase("no tensor left to the collector")
             collector_path()
+        elif name == "wide":
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            phase("wide kernels vs plain versions")
+            check_wide(g, lqt_scan, lqt_ref)
+            phase("Lorenz-96 wave: the wide kernels on the engine's path")
+            rows = wide_timing(g, lqt_scan, lqt_ref,
+                               lorenz96_path(lqt_kernel, lqt_scan))
+            print(json.dumps({"kernels": rows}))
         else:
             phase(f"sharded training path: {LM_ARCH}, {SHARD_LAYERS} layers "
                   f"on a 2 x 2 (data, model) mesh of cuda:0")
@@ -5034,6 +5292,7 @@ def main() -> int:
     phase("build")
     build_all({"lqt_combine": lqt_kernel.build,
                "lqt_scan": lqt_scan.build,
+               "lqt_scan_wide": lqt_scan.build_wide,
                **{f"flash_attention {v}": (lambda v=v: fa_kernel.build(v))
                   for v in fa_kernel.VARIANTS},
                **{f"ssd_chunked {v}": (lambda v=v: ssd_kernel.build(v))
@@ -5046,6 +5305,7 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     check_lqt(g, lqt_kernel, lqt_ref)
     check_scan(g, lqt_scan, lqt_ref)
+    check_wide(g, lqt_scan, lqt_ref)
     errs = {"flash_attention": check_fa(g, fa_kernel, fa_ref),
             "ssd_chunked": check_ssd(g, ssd_kernel, ssd_ref)}
 
@@ -5063,6 +5323,8 @@ def main() -> int:
     paths["nonlinear"], cells["nonlinear"] = nonlinear_path(lqt_kernel,
                                                             lqt_scan)
     torch.cuda.empty_cache()
+    phase("Lorenz-96 wave: the wide kernels on the engine's path")
+    l96_wave = lorenz96_path(lqt_kernel, lqt_scan)
 
     phase(f"sigma-point path: coordinated turn, {NL_MODE}, {NL_ITERS} "
           f"iterations")
@@ -5112,6 +5374,9 @@ def main() -> int:
     phase("lqt_scan timing at the estimation paths' scans")
     kernels = [scan_timing(g, lqt_scan, lqt_ref, paths)]
     torch.cuda.empty_cache()
+    phase("lqt_scan_wide and lqt_combine_wide timing at a Lorenz-96 "
+          "wave's launches")
+    kernels += wide_timing(g, lqt_scan, lqt_ref, l96_wave)
     phase("lqt_combine timing at the user scans' and the per-level "
           "scan's launch shapes")
     kernels.append(combine_timing(

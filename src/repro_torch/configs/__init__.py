@@ -1,4 +1,5 @@
-"""Configs: the paper's estimation experiments (section 5) and the ten
+"""Configs: the paper's estimation experiments (section 5), Lorenz-96 at
+its standard size (a 40-wide nonlinear SDE beside them), and the ten
 language-model architectures of the model zoo.
 
 Every architecture module exposes ``config()`` (the published
@@ -16,6 +17,7 @@ from . import (
     hubert_xlarge,
     hymba_1_5b,
     llava_next_34b,
+    lorenz96,
     mamba2_370m,
     phi35_moe_42b,
     qwen3_4b,

@@ -24,7 +24,7 @@ dims and loop only over the ``nsub`` substeps inside a block.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -58,14 +58,19 @@ def _lin_term(grid: GridLQT) -> Tensor:
     return grid.lin
 
 
+def one_step_dynamics(grid: GridLQT) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(A, b, C)`` of the single-substep elements (N, ...): the parts
+    that the trajectory's recovery needs, without the measurement's."""
+    dt = grid.dt[..., None, None]
+    I = torch.eye(grid.nx, dtype=grid.F.dtype, device=grid.F.device)
+    return I + dt * grid.F, grid.dt[..., None] * grid.c, dt * grid.Q
+
+
 def one_step_elements(grid: GridLQT) -> LQTElement:
     """Closed-form single-substep elements (N, ...) -- ``discrete`` mode."""
     dt = grid.dt[..., None, None]
-    I = torch.eye(grid.nx, dtype=grid.F.dtype, device=grid.F.device)
     HtRi = grid.H.transpose(-1, -2) @ grid.Rinv
-    A = I + dt * grid.F
-    b = grid.dt[..., None] * grid.c
-    C = dt * grid.Q
+    A, b, C = one_step_dynamics(grid)
     J = dt * (HtRi @ grid.H)
     eta = grid.dt[..., None] * (
         _mv(HtRi, grid.y - grid.r) - _lin_term(grid))
@@ -169,10 +174,38 @@ def euler_block_elements(grid: GridLQT, nsub: int,
     return e
 
 
+def discrete_recovery_maps(A: Tensor, b: Tensor, C: Tensor, S1: Tensor,
+                           v1: Tensor) -> Tuple[Tensor, Tensor]:
+    """The exact argmin step ``z* = (I + C S1)^{-1} (A phi + b + C v1)`` of
+    each substep as its affine map ``(Phi, beta)``."""
+    I = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    M = I + C @ S1
+    rhs = torch.cat([A, (b + _mv(C, v1)).unsqueeze(-1)], dim=-1)
+    sol = torch.linalg.solve(M, rhs)
+    return sol[..., :-1], sol[..., -1]
+
+
+class InBlockSteps(NamedTuple):
+    """The in-block work of ``discrete`` mode: ``fold(e1, e2)`` composes
+    two substep elements (eq. 42), ``value_step(e, value)`` takes a value
+    back across one substep, and ``recovery_maps(A, b, C, S1, v1)`` gives
+    each substep's argmin map ``(Phi, beta)``.  :data:`CORE_STEPS` are the
+    core's own; a kernel package may bring its own set
+    (:func:`repro_torch.core.parallel.parallel_rts`'s ``steps``)."""
+    fold: Callable
+    value_step: Callable
+    recovery_maps: Callable
+
+
+CORE_STEPS = InBlockSteps(lqt_combine, apply_element_to_value,
+                          discrete_recovery_maps)
+
+
 def discrete_block_elements(
-    grid: GridLQT, nsub: int
+    grid: GridLQT, nsub: int, steps: InBlockSteps = CORE_STEPS,
 ) -> Tuple[LQTElement, LQTElement]:
-    """Exact composition mode: block elements by in-block combine fold.
+    """Exact composition mode: block elements by in-block combine fold
+    (``steps.fold``).
 
     Returns ``(block_elems (T, ...), substep_elems (T, n, ...))``.
     """
@@ -181,13 +214,15 @@ def discrete_block_elements(
                        for a in one_step_elements(grid)))
     out = LQTElement(*(a[:, 0] for a in sub))
     for l in range(1, nsub):
-        out = lqt_combine(out, LQTElement(*(a[:, l] for a in sub)))
+        out = steps.fold(out, LQTElement(*(a[:, l] for a in sub)))
     return out, sub
 
 
-def backward_value_fill_discrete(sub_elems: LQTElement,
-                                 boundary: ValueFn) -> ValueFn:
-    """Exact information-form steps inside each block (``discrete`` mode).
+def backward_value_fill_discrete(sub_elems: LQTElement, boundary: ValueFn,
+                                 steps: InBlockSteps = CORE_STEPS
+                                 ) -> ValueFn:
+    """Exact information-form steps inside each block (``discrete`` mode),
+    each by ``steps.value_step``.
 
     ``boundary`` holds (S, v) at the RIGHT end of each block (``(T, ...)``);
     returns the values at the LEFT point of every substep (``(T, n, ...)``).
@@ -196,7 +231,7 @@ def backward_value_fill_discrete(sub_elems: LQTElement,
     carry = boundary
     out = [None] * nsub
     for l in range(nsub - 1, -1, -1):
-        carry = apply_element_to_value(
+        carry = steps.value_step(
             LQTElement(*(a[:, l] for a in sub_elems)), carry)
         out[l] = carry
     return ValueFn(torch.stack([o.S for o in out], dim=1),

@@ -79,12 +79,17 @@ def iterated_solve(
     # iterations - 1 in a lax.scan and the last outside it -- the same
     # passes in the same order.
     for _ in range(iterations):
+        # each pass keeps only the previous one's trajectory: its grid and
+        # its values (S, v) are freed before this pass's linearisation,
+        # not when this pass's own replace them
+        sol = None
         with trace_range("solve.linearise"):
             grid = grid_lqt_from_nonlinear(
                 model, ts, y, x, divergence_correction=divergence_correction,
                 measurement_mask=measurement_mask, prior=prior,
                 linearization=linearization)
         sol = solver(grid)
+        del grid
         if track_costs:
             with trace_range("solve.cost"):
                 costs.append(cost_of(sol.x))

@@ -40,6 +40,8 @@ from .combine import (
     lqt_combine,
 )
 from .elements import (
+    CORE_STEPS,
+    InBlockSteps,
     _check_blocks,
     backward_value_fill_discrete,
     backward_value_fill_euler,
@@ -68,6 +70,7 @@ def parallel_backward(
     mode: str = "euler",
     combine_fn: Callable = lqt_combine,
     suffix_scan_fn: Optional[Callable] = None,
+    steps: InBlockSteps = CORE_STEPS,
 ):
     """Parallel Kalman-Bucy filter (information form).
 
@@ -75,27 +78,30 @@ def parallel_backward(
     ``values_full`` holds S(tau_j), v(tau_j) for every substep j = 0..N,
     ``boundary`` the block-boundary values (T+1, ...), ``block_elems`` the
     scan elements and ``sub_elems`` the per-substep elements (``discrete``
-    mode only, else None).
+    mode only, else None).  ``steps`` folds each block's substep elements
+    and steps the values inside each block in ``discrete`` mode.
     """
     with trace_range("solve.elements"):
         if mode == "discrete":
-            blocks, sub = discrete_block_elements(grid, nsub)
+            blocks, sub = discrete_block_elements(grid, nsub, steps)
         elif mode in ("euler", "rk4"):
             blocks = euler_block_elements(grid, nsub, integrator=mode)
             sub = None
         else:
             raise ValueError(f"unknown element mode: {mode}")
         elems = _append_elem(blocks, terminal_element(grid))
-    if suffix_scan_fn is not None:
-        sbar = suffix_scan_fn(elems)
-    else:
-        sbar = pscan.suffix_scan(combine_fn, elems)
+    with trace_range("solve.scan"):
+        if suffix_scan_fn is not None:
+            sbar = suffix_scan_fn(elems)
+        else:
+            sbar = pscan.suffix_scan(combine_fn, elems)
     boundary = ValueFn(sbar.J, sbar.eta)                      # (T+1, ...)
 
     with trace_range("solve.fill"):
         right = ValueFn(boundary.S[1:], boundary.v[1:])       # (T, ...)
         if mode == "discrete":
-            interior = backward_value_fill_discrete(sub, right)  # (T, n,)
+            interior = backward_value_fill_discrete(      # (T, n, ...)
+                sub, right, steps)
         else:
             interior = backward_value_fill_euler(grid, nsub, right,
                                                  integrator=mode)
@@ -119,9 +125,10 @@ def parallel_backward(
 
 def _recover_affine(grid: GridLQT, values_full: ValueFn, nsub: int,
                     mode: str,
-                    prefix_scan_fn: Optional[Callable] = None):
+                    prefix_scan_fn: Optional[Callable] = None,
+                    steps: InBlockSteps = CORE_STEPS):
     """Method 1 (eq. 47): parallel RTS trajectory recovery."""
-    Phi, beta = affine_recovery_maps(grid, values_full, mode)
+    Phi, beta = affine_recovery_maps(grid, values_full, mode, steps)
     T = _check_blocks(grid.N, nsub)
     Phi = Phi.reshape((T, nsub) + Phi.shape[1:])
     beta = beta.reshape((T, nsub) + beta.shape[1:])
@@ -155,20 +162,23 @@ def parallel_rts(
     combine_fn: Callable = lqt_combine,
     suffix_scan_fn: Optional[Callable] = None,
     prefix_scan_fn: Optional[Callable] = None,
+    steps: InBlockSteps = CORE_STEPS,
 ) -> MAPSolution:
     """Parallel continuous-time RTS smoother (sections 4.1-4.3, method 1).
 
     ``suffix_scan_fn`` (elems -> inclusive suffix combine) replaces the
     plain scan of the backward pass; the ``parallel_kernel`` method passes
     :func:`repro_torch.kernels.lqt_combine.ops.kernel_suffix_scan` here.
-    ``prefix_scan_fn`` does the same for the affine recovery scan.
+    ``prefix_scan_fn`` does the same for the affine recovery scan, and
+    ``steps`` (:class:`~repro_torch.core.elements.InBlockSteps`) for the
+    in-block folds, value steps and recovery maps of ``discrete`` mode.
     """
     values_full, _, _, _ = parallel_backward(
         grid, nsub, mode, combine_fn=combine_fn,
-        suffix_scan_fn=suffix_scan_fn)
+        suffix_scan_fn=suffix_scan_fn, steps=steps)
     with trace_range("solve.recover"):
         phi = _recover_affine(grid, values_full, nsub, mode,
-                              prefix_scan_fn=prefix_scan_fn)
+                              prefix_scan_fn=prefix_scan_fn, steps=steps)
         return MAPSolution(
             x=torch.flip(phi, (0,)),
             S=torch.flip(values_full.S, (0,)),

@@ -97,18 +97,25 @@ def method_names() -> Tuple[str, ...]:
 
 def _parallel_kernel_solver(grid: GridLQT, o: KernelOptions) -> MAPSolution:
     """RTS smoother with the backward scan run by the CUDA scan kernel
-    (the whole tree, every record, in one launch).
+    (the whole tree, every record, in one launch); states wider than the
+    register kernel takes run the wide kernel, whose pairwise entry also
+    does their in-block work (``ops.in_block_steps``).
 
     The kernel package is imported lazily so ``repro_torch.core`` never
     depends on ``repro_torch.kernels`` at import time.
     """
-    from repro_torch.kernels.lqt_combine.ops import kernel_suffix_scan
+    from repro_torch.kernels.lqt_combine.ops import (
+        in_block_steps,
+        kernel_suffix_scan,
+    )
 
     def suffix(elems):
         return kernel_suffix_scan(elems, block_size=o.block_size,
                                   precision=o.precision)
 
-    return parallel_rts(grid, o.nsub, o.mode, suffix_scan_fn=suffix)
+    return parallel_rts(
+        grid, o.nsub, o.mode, suffix_scan_fn=suffix,
+        steps=in_block_steps(grid.nx))
 
 
 def _distributed_solver(grid: GridLQT, o: DistributedOptions, *,

@@ -148,6 +148,23 @@ def time_grid(t0: float, tf: float, num_steps: int,
     return torch.linspace(t0, tf, num_steps + 1, dtype=dtype, device=device)
 
 
+def _flip_time(a: Tensor) -> Tensor:
+    """``a`` reversed along its time axis (0); a view that repeats one
+    value along time (stride 0, a constant expanded to every point) is its
+    own reverse and stays a view."""
+    return a if a.stride(0) == 0 else torch.flip(a, (0,))
+
+
+def _factor_once_view(a: Tensor, factor) -> Tensor:
+    """``factor`` of a grid of matrices: of the one matrix when ``a`` is a
+    broadcast view of it (every leading stride 0), broadcast back;
+    otherwise of every point."""
+    lead = a.dim() - 2
+    if lead > 0 and all(s == 0 for s in a.stride()[:lead]):
+        return factor(a[(0,) * lead]).expand(a.shape)
+    return factor(a)
+
+
 def build_grid_lqt(
     F: Tensor, c: Tensor, H: Tensor, r: Tensor, Q: Tensor, R: Tensor,
     y: Tensor, dt: Tensor, m0: Tensor, P0: Tensor,
@@ -163,8 +180,7 @@ def build_grid_lqt(
     intervals.  ``prior`` ``(S0, v0)`` replaces the covariance-form
     ``(m0, P0)`` boundary with information-form terminal values.
     """
-    flip = lambda a: torch.flip(a, (0,))
-    Rinv = torch.linalg.inv(R)
+    Rinv = _factor_once_view(R, torch.linalg.inv)
     if measurement_mask is not None:
         Rinv = Rinv * measurement_mask[..., None, None]
         if lin is not None:
@@ -174,6 +190,7 @@ def build_grid_lqt(
     else:
         S_T = torch.linalg.inv(P0)
         v_T = _mv(S_T, m0)
+    flip = _flip_time
     return GridLQT(
         dt=flip(dt.expand(y.shape[:-1])),
         F=-flip(F), c=-flip(c),

@@ -24,11 +24,14 @@ from .combine import (
     lqt_combine,
 )
 from .elements import (
+    CORE_STEPS,
+    InBlockSteps,
     _lin_term,
     _ode_step_backward,
     _riccati_derivs,
     forward_hjb_step,
     identity_element,
+    one_step_dynamics,
     one_step_elements,
 )
 from .types import GridLQT, LQTElement, MAPSolution, Tensor, ValueFn
@@ -66,22 +69,19 @@ def sequential_backward(grid: GridLQT, mode: str = "euler") -> ValueFn:
 
 
 def affine_recovery_maps(grid: GridLQT, values: ValueFn,
-                         mode: str = "euler"):
+                         mode: str = "euler",
+                         steps: InBlockSteps = CORE_STEPS):
     """Per-substep affine maps phi(tau_{j+1}) = Phi_j phi(tau_j) + beta_j.
 
     ``euler``/``rk4`` modes: eqs. (18)-(19) with left-point values;
     ``discrete`` mode: the exact argmin step
-    ``z* = (I + C_j S_{j+1})^{-1} (A_j phi + b_j + C_j v_{j+1})``.
+    ``z* = (I + C_j S_{j+1})^{-1} (A_j phi + b_j + C_j v_{j+1})``, by
+    ``steps.recovery_maps``.
     """
     I = torch.eye(grid.nx, dtype=grid.F.dtype, device=grid.F.device)
     if mode == "discrete":
-        e = one_step_elements(grid)
-        S1 = values.S[1:]
-        v1 = values.v[1:]
-        M = I + e.C @ S1
-        rhs = torch.cat([e.A, (e.b + _mv(e.C, v1)).unsqueeze(-1)], dim=-1)
-        sol = torch.linalg.solve(M, rhs)
-        return sol[..., :-1], sol[..., -1]
+        return steps.recovery_maps(*one_step_dynamics(grid),
+                                   values.S[1:], values.v[1:])
     S0 = values.S[:-1]
     v0 = values.v[:-1]
     dt = grid.dt[..., None, None]

@@ -7,7 +7,7 @@ from .ops import (
     scan_combine_fn,
 )
 from .ref import lqt_combine_lanes_ref, lqt_combine_ref, lqt_scan_ref
-from .scan import lqt_scan
+from .scan import lqt_scan, lqt_scan_wide
 
 __all__ = [
     "build",
@@ -20,6 +20,7 @@ __all__ = [
     "lqt_combine_ref",
     "lqt_scan",
     "lqt_scan_ref",
+    "lqt_scan_wide",
     "reset_launch_count",
     "scan",
     "scan_combine_fn",

@@ -10,7 +10,10 @@ per tree level, and one per carry combine and fix-up of a sharded scan.
 ``kernel_prefix_scan`` / ``kernel_suffix_scan`` run a whole scan in ONE
 launch of the scan kernel (``scan.py``), every tree level and every record
 of ``(n, *R, nx, nx)`` elements, read and written in their natural layout:
-no flip, transpose or per-level copy around it.  The tree is
+no flip, transpose or per-level copy around it.  States wider than
+``MAX_NX`` take the wide kernel (``scan.lqt_scan_wide``: one launch per
+tree level, the same tree), whose pairwise entry also does their in-block
+work in ``discrete`` mode (:func:`in_block_steps`).  The tree is
 :func:`repro_torch.core.pscan.associative_scan`'s, so the combine ORDER
 matches the plain scan; the per-combine arithmetic still differs
 (unpivoted Gauss-Jordan vs pivoted ``torch.linalg.solve``), so on the card
@@ -22,10 +25,12 @@ import math
 
 import torch
 
-from repro_torch.core.types import LQTElement
+from repro_torch.core.combine import value_as_element
+from repro_torch.core.elements import CORE_STEPS, InBlockSteps
+from repro_torch.core.types import LQTElement, ValueFn
 
-from .kernel import _MAT, lqt_combine_lanes
-from .scan import lqt_scan
+from .kernel import _MAT, MAX_NX, lqt_combine_lanes
+from .scan import lqt_combine_wide, lqt_scan, lqt_scan_wide
 
 _PRECISIONS = {"float32": torch.float32, "float64": torch.float64}
 
@@ -85,17 +90,24 @@ def _scan_dtype(precision: str, dtype: torch.dtype) -> torch.dtype:
 
 def _scan(elems: LQTElement, reverse: bool, block_size: int,
           precision: str) -> LQTElement:
+    """The scan by the kernel that takes the elements' width: the register
+    kernel up to ``MAX_NX``, the wide kernel above it."""
     in_dtype = elems[0].dtype
     cdtype = _scan_dtype(precision, in_dtype)
-    out = lqt_scan(LQTElement(*(a.to(cdtype) for a in elems)),
-                   reverse=reverse, block_size=block_size)
+    elems = LQTElement(*(a.to(cdtype) for a in elems))
+    if elems.A.shape[-1] <= MAX_NX:
+        out = lqt_scan(elems, reverse=reverse, block_size=block_size)
+    else:
+        out = lqt_scan_wide(elems, reverse=reverse)
     return LQTElement(*(a.to(in_dtype) for a in out))
 
 
 def kernel_prefix_scan(elems: LQTElement, *, block_size: int = 128,
                        precision: str = "default") -> LQTElement:
     """Inclusive prefix combine along axis 0 (earlier operand first), one
-    scan-kernel launch with ``block_size`` threads per block.
+    scan-kernel launch with ``block_size`` threads per block (states wider
+    than ``MAX_NX``: the wide kernel, its own block of
+    ``scan.WIDE_THREADS``).
 
     ``precision`` selects the kernel compute dtype (``"default"`` keeps the
     element dtype; ``"float32"``/``"float64"`` cast for the scan and cast
@@ -134,3 +146,35 @@ def scan_combine_fn(*, block_size: int = 128):
         return lqt_combine_batched(a, b, block_size=block_size)
 
     return fn
+
+
+def _wide_value_step(e: LQTElement, value: ValueFn) -> ValueFn:
+    """A value taken back across ``e``: the (J, eta) of
+    ``e (x) (0, 0, 0, v, S)``."""
+    out = lqt_combine_wide(e, value_as_element(value))
+    return ValueFn(out.J, out.eta)
+
+
+def _wide_recovery_maps(A, b, C, S1, v1):
+    """The argmin step's map ``(Phi, beta)``: the (A, b) of
+    ``(A, b, C, 0, 0) (x) (I, 0, 0, v1, S1)``."""
+    I = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    Z = torch.zeros_like(I).expand(S1.shape)
+    z = torch.zeros_like(I[0]).expand(v1.shape)
+    maps = lqt_combine_wide(LQTElement(A, b, C, z, Z),
+                            LQTElement(I.expand(S1.shape), z, Z, v1, S1))
+    return maps.A, maps.b
+
+
+# the in-block work of states wider than MAX_NX, each step one launch of
+# the wide kernel's pairwise entry: at nx = 40 the core's steps would run
+# torch's batched LU (MAGMA's getrf, a row-swap launch per column)
+WIDE_STEPS = InBlockSteps(lqt_combine_wide, _wide_value_step,
+                          _wide_recovery_maps)
+
+
+def in_block_steps(nx: int) -> InBlockSteps:
+    """The in-block steps of ``discrete`` mode for states ``nx`` wide
+    (``core.elements.InBlockSteps``): the core's own up to ``MAX_NX``,
+    :data:`WIDE_STEPS` above it."""
+    return CORE_STEPS if nx <= MAX_NX else WIDE_STEPS

@@ -39,6 +39,7 @@ never a ``span.<name>`` histogram)::
     |  |- solve.grid        linear grid (grid_lqt_from_linear)
     |  |- solve.linearise   Taylor linearisation, once a pass (nonlinear models)
     |  |- solve.elements    block elements, terminal element, append
+    |  |- solve.scan        the eq.-(42) suffix scan over the block elements
     |  |- solve.fill        in-block values, values_full assembly
     |  |- solve.recover     trajectory recovery (eq. 47) and the flips
     |  `- solve.cost        OM cost; in an iterated solve each pass's cost and
@@ -53,12 +54,18 @@ which it took, one of two counters (beside ``estimator.solves``)::
     cost.qpinv.once         Q's pseudo-inverse taken once and broadcast
     cost.qpinv.grid         one pseudo-inverse per grid point (callable Q)
 
-The eq.-(42) suffix scan (between ``solve.elements`` and ``solve.fill``;
-its kernel is named ``lqt_scan_kernel`` on the trace) and the
-``Solution``'s copies at the end of the solve sit in ``estimator.solve``
-outside any ``solve.*`` range.  A Wiener wave of ``parallel_kernel``
-opens 9 ranges; an iterated solve of 5 passes repeats
-``solve.linearise`` .. ``solve.cost`` five times (30 in a
+The suffix scan's kernel is ``lqt_scan_kernel`` on the trace for states
+up to 8 wide and ``lqt_scan_wide_kernel`` (one launch per tree level)
+above; each kernel counts its launches on the card, where they are made,
+while telemetry is on (a CPU tensor's plain scan launches nothing)::
+
+    scan.kernel.regs        launches of the register kernel (one a scan)
+    scan.kernel.wide        launches of the wide kernel (as it reports them)
+
+The ``Solution``'s copies at the end of the solve sit in
+``estimator.solve`` outside any ``solve.*`` range.  A Wiener wave of
+``parallel_kernel`` opens 10 ranges; an iterated solve of 5 passes
+repeats ``solve.linearise`` .. ``solve.cost`` five times (35 in a
 coordinated-turn wave).  The benchmark's ``portbench/spans.py`` reads
 them in its profiled stretch.
 """

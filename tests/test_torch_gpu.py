@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the LM kernels on the card
 (also under autograd, and a training step through them; attention at head
 size 80), the MoE layer and an MoE model's gradients,
-the whole-scan ``lqt_scan`` kernel against its plain scan, the pairwise
+the whole-scan ``lqt_scan`` kernel and the wide ``lqt_scan_wide`` kernel against
+their plain scan, the pairwise
 kernel as ``scan_combine_fn``, a sharded checkpoint restored across mesh
 shapes on a repeated card, and the
 nonlinear estimation paths (the iterated Taylor and sigma-point
@@ -374,6 +375,109 @@ def test_scan_kernel_matches_plain_scan_on_card(card):
                 err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
                 assert err <= tol * scale, (dtype, nx, n, rec, reverse, err)
+
+
+@pytest.mark.gpu
+def test_wide_scan_kernel_matches_plain_scan_on_card(card):
+    """The wide kernel at nx 9, 16, 40 and NX_WIDE, for one record and
+    64, both directions, one element, an empty tree level (2), odd n and
+    the 513 elements of a 512-block record: ``wide_launches(n)`` launches
+    a scan (one per tree level with combines) and none of the register
+    kernel, each counted under ``scan.kernel.wide`` while telemetry is on
+    (and a register-kernel scan's one launch under ``scan.kernel.regs``);
+    normwise within 1e-9 of the plain scan in float64 and 1e-3 in
+    float32."""
+    from repro_torch import obs
+
+    obs.disable()
+    obs.reset()
+    obs.enable()
+    try:
+        _wide_scans_match_plain_scan(card, obs)
+        narrow = LQTElement(*(torch.eye(4, device="cuda").repeat(5, 1, 1),
+                              torch.zeros(5, 4, device="cuda"),
+                              torch.zeros(5, 4, 4, device="cuda"),
+                              torch.zeros(5, 4, device="cuda"),
+                              torch.zeros(5, 4, 4, device="cuda")))
+        before = obs.snapshot()["counters"]
+        lqt_scan.lqt_scan(narrow)
+        after = obs.snapshot()["counters"]
+        assert (after["scan.kernel.regs"]
+                - before.get("scan.kernel.regs", 0)) == 1
+        assert after["scan.kernel.wide"] == before["scan.kernel.wide"]
+    finally:
+        obs.disable()
+        obs.reset()
+
+
+def _wide_scans_match_plain_scan(card, obs):
+    for (dtype, tol), nx in itertools.product(
+            ((torch.float64, 1e-9), (torch.float32, 1e-3)),
+            (9, 16, 40, lqt_scan.NX_WIDE)):
+        for n, rec in itertools.product((1, 2, 17, 513), ((), (64,))):
+            sh = (n,) + rec
+
+            def r(*s):
+                return torch.randn(*sh, *s, generator=card, device="cuda",
+                                   dtype=torch.float64)
+
+            def psd():
+                A = r(nx, nx)
+                return A @ A.transpose(-1, -2) / nx + 0.1 * torch.eye(
+                    nx, device="cuda", dtype=torch.float64)
+
+            e = LQTElement(*(x.to(dtype) for x in (
+                r(nx, nx) * 0.6, r(nx), psd(), r(nx), psd())))
+            for reverse in (False, True):
+                before = (lqt_scan.wide_launch_count(),
+                          lqt_scan.launch_count(),
+                          obs.snapshot()["counters"].get("scan.kernel.wide",
+                                                         0))
+                got = lqt_scan.lqt_scan_wide(e, reverse=reverse)
+                want = lqt_ref.lqt_scan_ref(e, reverse=reverse)
+                torch.cuda.synchronize()
+                launched = lqt_scan.wide_launches(n)
+                assert (lqt_scan.wide_launch_count(),
+                        lqt_scan.launch_count(),
+                        obs.snapshot()["counters"]["scan.kernel.wide"]) == (
+                    before[0] + launched, before[1], before[2] + launched)
+                scale = max(float(w.abs().max()) for w in want)
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                assert err <= tol * scale, (dtype, nx, n, rec, reverse, err)
+
+
+@pytest.mark.gpu
+def test_wide_combine_kernel_matches_plain_combine_on_card(card):
+    """The wide kernel's pairwise entry (a block fold's step: substeps 0
+    and 1 of a (33, 3, 4) grid of elements, read in place from their
+    strided views) at nx 9, 40 and NX_WIDE: one launch, normwise within
+    1e-9 of the core combine in float64 and 1e-3 in float32."""
+    for (dtype, tol), nx in itertools.product(
+            ((torch.float64, 1e-9), (torch.float32, 1e-3)),
+            (9, 40, lqt_scan.NX_WIDE)):
+        sh = (33, 3, 4)
+
+        def r(*s):
+            return torch.randn(*sh, *s, generator=card, device="cuda",
+                               dtype=torch.float64)
+
+        def psd():
+            A = r(nx, nx)
+            return A @ A.transpose(-1, -2) / nx + 0.1 * torch.eye(
+                nx, device="cuda", dtype=torch.float64)
+
+        sub = LQTElement(*(x.to(dtype) for x in (
+            r(nx, nx) * 0.6, r(nx), psd(), r(nx), psd())))
+        a, b = (LQTElement(*(x[:, l] for x in sub)) for l in (0, 1))
+        before = lqt_scan.pair_launch_count()
+        got = lqt_scan.lqt_combine_wide(a, b)
+        want = lqt_ref.lqt_combine_ref(*a, *b)
+        torch.cuda.synchronize()
+        assert lqt_scan.pair_launch_count() == before + 1
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        assert err <= tol * scale, (dtype, nx, err)
 
 
 @pytest.mark.gpu

@@ -464,7 +464,8 @@ def test_ragged_solve_reports_padding_metrics():
 # -- parity with the reference's metrics --------------------------------------
 
 # the port's counters that the reference lacks (module docstring)
-PORT_ONLY_COUNTERS = ("cost.qpinv.once", "cost.qpinv.grid")
+PORT_ONLY_COUNTERS = ("cost.qpinv.once", "cost.qpinv.grid",
+                      "scan.kernel.regs", "scan.kernel.wide")
 
 
 def _normalised(snap):
@@ -558,6 +559,8 @@ def test_metric_names_match_reference(parity_runs, scenario):
     if scenario == "ragged":           # linear, constant Q: one a solve
         assert counters["cost.qpinv.once"] == counters["estimator.solves"]
         assert "cost.qpinv.grid" not in counters
+        # parallel_kernel on the CPU: the plain scan, no kernel launch
+        assert not {"scan.kernel.regs", "scan.kernel.wide"} & set(counters)
     else:
         assert not set(PORT_ONLY_COUNTERS) & set(counters)
     port["counters"] = [n for n in port["counters"]

@@ -27,7 +27,8 @@ pytestmark = pytest.mark.filterwarnings(
     "ignore:`torch.jit.script` is deprecated:DeprecationWarning")
 
 NSUB, N, ROWS = 5, 40, 3
-PASS = ["solve.elements", "solve.fill", "solve.recover", "solve.cost"]
+PASS = ["solve.elements", "solve.scan", "solve.fill", "solve.recover",
+        "solve.cost"]
 WIENER_SOLVE = ["solve.grid"] + PASS
 MEASURED = {"estimator.solve.prepare", "estimator.solve.compile",
             "estimator.solve.execute", "estimator.solve.host_transfer"}
